@@ -1,0 +1,162 @@
+"""ResNet encoders producing the U-Net feature pyramid.
+
+Counterpart of the JAX package's ``models/resnet.py`` (resnet18/34/50/
+101/152; mobilenet_v2 comes later).  Modules compute on NCHW tensors in
+channels_last memory, so the NHWC view of every activation is free;
+``ResNetEncoder.forward`` keeps the JAX package's NHWC boundary and
+returns the same 6-level pyramid
+``[identity, /2, /4, /8, /16, /32]``.
+
+Padding follows the JAX encoder exactly: torch-style symmetric ``k//2``
+for every conv (equal to SAME at stride 1), max-pool 3/2 with -inf
+padding 1.  Parameters are float32; activations run in ``dtype``.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from uda_aerial_semantic_segmentation_research_tpu_torch.ops.batch_norm import (
+    BatchNorm,
+)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` with float32 parameters cast to the input's dtype."""
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+def conv(cin: int, cout: int, k: int, stride: int = 1, bias: bool = False) -> Conv2d:
+    return Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=bias)
+
+
+class BasicBlock(nn.Module):
+    """3x3 + 3x3 residual block (resnet18/34)."""
+
+    expansion = 1
+
+    def __init__(self, cin: int, filters: int, stride: int, dtype: torch.dtype):
+        super().__init__()
+        self.conv1 = conv(cin, filters, 3, stride)
+        self.bn1 = BatchNorm(filters, dtype=dtype)
+        self.conv2 = conv(filters, filters, 3)
+        self.bn2 = BatchNorm(filters, zero_scale=True, dtype=dtype)
+        self.downsample_conv = self.downsample_norm = None
+        if stride != 1 or cin != filters:
+            self.downsample_conv = conv(cin, filters, 1, stride)
+            self.downsample_norm = BatchNorm(filters, dtype=dtype)
+
+    def forward(self, x):
+        y = torch.relu(self.bn1(self.conv1(x)))
+        y = self.bn2(self.conv2(y))
+        residual = x
+        if self.downsample_conv is not None:
+            residual = self.downsample_norm(self.downsample_conv(x))
+        return torch.relu(y + residual)
+
+
+class Bottleneck(nn.Module):
+    """1x1 -> 3x3 -> 1x1 residual block (resnet50+)."""
+
+    expansion = 4
+
+    def __init__(self, cin: int, filters: int, stride: int, dtype: torch.dtype):
+        super().__init__()
+        out = filters * self.expansion
+        self.conv1 = conv(cin, filters, 1)
+        self.bn1 = BatchNorm(filters, dtype=dtype)
+        self.conv2 = conv(filters, filters, 3, stride)
+        self.bn2 = BatchNorm(filters, dtype=dtype)
+        self.conv3 = conv(filters, out, 1)
+        self.bn3 = BatchNorm(out, zero_scale=True, dtype=dtype)
+        self.downsample_conv = self.downsample_norm = None
+        if stride != 1 or cin != out:
+            self.downsample_conv = conv(cin, out, 1, stride)
+            self.downsample_norm = BatchNorm(out, dtype=dtype)
+
+    def forward(self, x):
+        y = torch.relu(self.bn1(self.conv1(x)))
+        y = torch.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        residual = x
+        if self.downsample_conv is not None:
+            residual = self.downsample_norm(self.downsample_conv(x))
+        return torch.relu(y + residual)
+
+
+class ResNetEncoder(nn.Module):
+    """ResNet backbone returning the smp-style 6-feature pyramid.
+
+    Blocks are registered as ``stage{s}_block{b}`` (1-based stages), the
+    JAX package's module names.
+    """
+
+    def __init__(self, stage_sizes, block_cls, in_channels: int = 3,
+                 num_filters: int = 64, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.stem_conv = conv(in_channels, num_filters, 7, 2)
+        self.stem_norm = BatchNorm(num_filters, dtype=dtype)
+        self.stages: List[List[str]] = []
+        cin = num_filters
+        for stage, n_blocks in enumerate(stage_sizes):
+            names = []
+            filters = num_filters * 2 ** stage
+            for blk in range(n_blocks):
+                stride = 2 if stage > 0 and blk == 0 else 1
+                name = f"stage{stage + 1}_block{blk}"
+                self.add_module(name, block_cls(cin, filters, stride, dtype))
+                cin = filters * block_cls.expansion
+                names.append(name)
+            self.stages.append(names)
+
+    def features(self, x) -> List[torch.Tensor]:
+        """NCHW input -> NCHW pyramid (the U-Net's internal form)."""
+        feats = [x]
+        y = torch.relu(self.stem_norm(self.stem_conv(x.to(self.dtype))))
+        feats.append(y)                                          # /2
+        y = F.max_pool2d(y, 3, stride=2, padding=1)
+        for names in self.stages:
+            for name in names:
+                y = getattr(self, name)(y)
+            feats.append(y)                                      # /4 /8 /16 /32
+        return feats
+
+    def forward(self, x) -> List[torch.Tensor]:
+        """NHWC input -> NHWC pyramid, as the JAX encoder."""
+        return [f.permute(0, 2, 3, 1) for f in self.features(x.permute(0, 3, 1, 2))]
+
+
+ENCODERS = {
+    "resnet18": dict(stage_sizes=(2, 2, 2, 2), block_cls=BasicBlock,
+                     out_channels=(3, 64, 64, 128, 256, 512)),
+    "resnet34": dict(stage_sizes=(3, 4, 6, 3), block_cls=BasicBlock,
+                     out_channels=(3, 64, 64, 128, 256, 512)),
+    "resnet50": dict(stage_sizes=(3, 4, 6, 3), block_cls=Bottleneck,
+                     out_channels=(3, 64, 256, 512, 1024, 2048)),
+    "resnet101": dict(stage_sizes=(3, 4, 23, 3), block_cls=Bottleneck,
+                      out_channels=(3, 64, 256, 512, 1024, 2048)),
+    "resnet152": dict(stage_sizes=(3, 8, 36, 3), block_cls=Bottleneck,
+                      out_channels=(3, 64, 256, 512, 1024, 2048)),
+}
+
+
+def encoder_out_channels(encoder_name: str):
+    return ENCODERS[encoder_name]["out_channels"]
+
+
+def build_encoder(encoder_name: str, in_channels: int = 3,
+                  dtype: torch.dtype = torch.bfloat16) -> ResNetEncoder:
+    if encoder_name not in ENCODERS:
+        raise ValueError(
+            f"Unknown encoder '{encoder_name}'; available: {sorted(ENCODERS)}")
+    spec = ENCODERS[encoder_name]
+    return ResNetEncoder(spec["stage_sizes"], spec["block_cls"],
+                         in_channels=in_channels, dtype=dtype)
