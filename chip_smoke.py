@@ -1,21 +1,45 @@
 """Chip smoke run of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # everything below, on one card
+    python3 chip_smoke.py --probe-batch N  # only: does a train step fit at batch N?
 
 1. prints the card (``nvidia-smi`` name and power limit);
-2. builds the port's CUDA kernel from ``csrc/`` with nvcc;
-3. holds the kernel against its plain PyTorch version at the serving
-   path's shapes (B=32: 256x256x32->32 and 512x512x16->16, bf16 and f32,
-   with and without the BN affine, with moments) and one ragged shape,
-   and times kernel, plain version, cuDNN conv and the roofline bound;
+2. builds the port's four CUDA libraries from ``csrc/`` with nvcc, all
+   compilers started together;
+3. holds every kernel against its plain PyTorch version on the card, at
+   the shapes the main paths give it, with the tolerance beside it, and
+   times kernel, plain version, the one PyTorch call that computes the same
+   function (where there is one) and the roofline bound:
+   - ``conv_bn_relu`` at the serving shapes (B=32: 256x256x32->32 and
+     512x512x16->16, bf16 and f32, with and without the BN affine, with
+     moments) and one ragged shape;
+   - ``channel_sums`` / ``channel_dual_sums`` at every BatchNorm input of
+     the train step (B=32; among them 512x512x16, 256x256x32, 16x16x512),
+     bf16 and f32, and one ragged shape;
+   - ``dihedral_normalize`` at (32, 512, 512, 3) uint8 with masks, all
+     eight group elements present, bit-exact;
+   - ``fused_cross_entropy`` at (32, 512, 512, 23) f32 and bf16, forward
+     and backward;
 4. drives the serving path -- resnet34 U-Net, 23 classes, 512 px tiles,
    bf16, seeded random weights -- through ``predict_batch`` (B=32) and
    ``predict_raster`` (2000x1500 raster), checks that every forward
-   launched the kernel exactly twice, times the forward (CUDA events)
+   launched ``conv_bn_relu`` exactly twice, times the forward (CUDA events)
    and breaks its device time down by kernel (``torch.profiler``), and
    checks the fused path against the plain one in f32;
-5. prints one JSON line of kernel results, the card line again, and
-   last ``{"ok": true, "device": {...}}``.
+5. drives the train path at the same width -- ``make_supervised_train_step``
+   with the dihedral-only augmentation, ``fused_ce=True`` and ``adam(1e-4)``,
+   B=32 uint8 tiles and masks, 5 steps from seeded weights and batches --
+   and checks finite losses, changed parameters and BatchNorm buffers,
+   ``hist.sum()``, and the exact launch counts per step (one
+   ``channel_sums`` and one ``channel_dual_sums`` per BatchNorm, one
+   ``dihedral_normalize``, two ``fused_cross_entropy``); times the step,
+   reads the peak memory and breaks the device time down by kind;
+6. runs ``make_eval_step`` on the trained model (2 ``conv_bn_relu``
+   launches, finite loss);
+7. holds one float32 train step on the card (kernels) against the same
+   step on a CPU copy of the model (plain versions), same flags;
+8. prints one JSON line of kernel results, the card line again, and last
+   ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero; without a CUDA
 device it exits non-zero before printing any result.  It imports
@@ -24,6 +48,10 @@ nothing of JAX.
 
 from __future__ import annotations
 
+import argparse
+import collections
+import copy
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -41,9 +69,18 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 SLICE_SHAPES = [(32, 256, 256, 32, 32), (32, 512, 512, 16, 16)]
 RAGGED_SHAPE = (2, 18, 50, 24, 20)
 SEED = 0
+PORT = "uda_aerial_semantic_segmentation_research_tpu_torch"
+JAX_OPS = "uda_aerial_semantic_segmentation_research_tpu/ops"
+TRAIN_BATCH, TRAIN_STEPS, TILE, CLASSES = 32, 5, 512, 23
+SUMS_RAGGED = (3, 7, 5, 24)
 # device functions grouped by name (first match wins)
 PROFILE_CATEGORIES = [
-    ("conv_bn_relu kernel", ("conv_bn_relu",)),
+    ("conv_bn_relu kernel", ("conv_bn_relu", "fold_moments")),
+    ("fused_cross_entropy kernels", ("ce_fwd_kernel", "ce_bwd_kernel", "ce_fold_kernel")),
+    ("channel_sums kernels", ("sums_vec_kernel", "sums_generic_kernel", "::fold_kernel")),
+    ("dihedral_normalize kernel", ("dihedral_kernel",)),
+    ("optimizer (foreach Adam, clip)", ("multi_tensor_apply",)),
+    ("argmax + confusion matrix", ("ArgMaxOps", "scatter_gather")),
     ("cuDNN convolution", ("cudnn", "cutlass", "xmma", "sm90_", "conv")),
     ("nearest upsample", ("upsample",)),
     ("concat", ("CatArray", "cat_")),
@@ -196,7 +233,210 @@ def randomize_batch_norms_(model, gen):
                 m.var.copy_(0.5 + torch.rand(n, generator=gen))
 
 
-def main() -> int:
+def roofline(nbytes, ops, dtype=torch.float32):
+    """Least time (ms): bytes over the memory rate vs operations over the
+    peak rate of ``dtype``; and which of the two it is."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def dtype_name(dtype) -> str:
+    return str(dtype).split(".")[-1]
+
+
+def check_sums(ops, gen, shape, dtype, timed):
+    """channel_sums / channel_dual_sums vs their plain versions on one
+    (..., C) shape.  Tolerance: 1e-5 of sum|terms| per channel (float32
+    sums taken in another order)."""
+    x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
+    dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    dims = tuple(range(len(shape) - 1))
+    got, dual = ops.channel_sums(x), ops.channel_dual_sums(dy, x)
+    torch.cuda.synchronize()
+    ref, dual_ref = ops.channel_sums_reference(x), ops.channel_dual_sums_reference(dy, x)
+    x32, dy32 = x.float(), dy.float()
+    terms = torch.stack([x32.abs().sum(dims), (x32 * x32).sum(dims)])
+    dual_terms = torch.stack([dy32.abs().sum(dims), (dy32 * x32).abs().sum(dims)])
+    rel = max(((got - ref).abs() / (terms + 1e-6)).max().item(),
+              ((dual - dual_ref).abs() / (dual_terms + 1e-6)).max().item())
+    if not rel <= 1e-5:
+        raise AssertionError(f"channel sums off by {rel} of sum|terms| at {shape} {dtype}")
+    res = dict(kernel="channel_sums", shape=list(shape), dtype=dtype_name(dtype),
+               tolerance="1e-5 * sum|terms|", max_rel_err=rel,
+               max_abs_err=max((got - ref).abs().max().item(),
+                               (dual - dual_ref).abs().max().item()))
+    del x32, dy32
+    if timed:
+        n, c, elt = x.numel(), shape[-1], x.element_size()
+        res["sums_ms"] = time_ms(lambda: ops.channel_sums(x))
+        res["dual_ms"] = time_ms(lambda: ops.channel_dual_sums(dy, x))
+        res["sums_plain_ms"] = time_ms(lambda: ops.channel_sums_reference(x))
+        res["dual_plain_ms"] = time_ms(lambda: ops.channel_dual_sums_reference(dy, x))
+        res["sums_library_ms"] = time_ms(lambda: torch.var_mean(x, dim=dims))
+        res["dual_library_ms"] = time_ms(
+            lambda: (dy.sum(dims, dtype=torch.float32),
+                     (dy * x).sum(dims, dtype=torch.float32)))
+        res["sums_bound_ms"], res["bound_by"] = roofline(n * elt + 8 * c, 4 * n)
+        res["dual_bound_ms"], _ = roofline(2 * n * elt + 8 * c, 4 * n)
+    print("kernel check", json.dumps(res), flush=True)
+    return res
+
+
+def check_dihedral(ops, host_rng):
+    """dihedral_normalize vs its plain version at the train step's shape,
+    every group element present: bit-exact images and masks."""
+    b = TRAIN_BATCH
+    images = torch.from_numpy(host_rng.integers(0, 256, (b, TILE, TILE, 3), dtype=np.uint8)).cuda()
+    masks = torch.from_numpy(host_rng.integers(0, CLASSES, (b, TILE, TILE), dtype=np.uint8)).cuda()
+    flags = torch.from_numpy(host_rng.permutation(b).astype(np.int32) % 8).cuda()
+    if len(set(flags.tolist())) != 8:
+        raise AssertionError("not every dihedral element is present")
+    max_err = 0.0
+    for normalize in (False, True):
+        x, m = ops.dihedral_normalize(images, flags, masks, normalize=normalize)
+        torch.cuda.synchronize()
+        x_ref, m_ref = ops.dihedral_normalize_reference(images, flags, masks,
+                                                        normalize=normalize)
+        if not (torch.equal(x, x_ref) and torch.equal(m, m_ref)):
+            raise AssertionError(f"dihedral_normalize(normalize={normalize}) is not bit-exact")
+        max_err = max(max_err, (x - x_ref).abs().max().item())
+    n_img, n_mask = images.numel(), masks.numel()
+    res = dict(kernel="dihedral_normalize", shape=list(images.shape), dtype="uint8",
+               tolerance="bit-exact", max_abs_err=max_err,
+               kernel_ms=time_ms(lambda: ops.dihedral_normalize(images, flags, masks)),
+               plain_ms=time_ms(lambda: ops.dihedral_normalize_reference(images, flags, masks)),
+               library_ms=None)
+    res["bound_ms"], res["bound_by"] = roofline(5 * n_img + 5 * n_mask + 4 * b, 2 * n_img)
+    print("kernel check", json.dumps(res), flush=True)
+    return res
+
+
+def check_fused_ce(ops, gen, dtype):
+    """fused_cross_entropy forward and backward vs the plain versions at the
+    train step's shape.  Tolerance: loss 1e-5 relative; dlogits 1e-5 of the
+    largest entry in float32, one bfloat16 ulp (2^-7 of it) in bfloat16."""
+    shape = (TRAIN_BATCH, TILE, TILE, CLASSES)
+    logits = (3 * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
+    labels = torch.randint(0, CLASSES, shape[:-1], generator=gen, device="cuda",
+                           dtype=torch.int32)
+    x = logits.clone().requires_grad_()
+    loss = ops.fused_cross_entropy(x, labels)
+    loss.backward()
+    torch.cuda.synchronize()
+    ref = ops.fused_cross_entropy_reference(logits, labels)
+    g_ref = ops.fused_cross_entropy_grad_reference(logits, labels,
+                                                   torch.ones((), device="cuda"))
+    torch.testing.assert_close(loss.detach(), ref, rtol=1e-5, atol=1e-5)
+    peak = g_ref.float().abs().max().item()
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    grad_err = (x.grad.float() - g_ref.float()).abs().max().item()
+    if not grad_err <= tol * peak:
+        raise AssertionError(f"dlogits off by {grad_err} (largest entry {peak}) in {dtype}")
+    del g_ref
+
+    def fwd_bwd(loss_fn):
+        x.grad = None
+        loss_fn(x).backward()
+
+    n, elt = logits.numel(), logits.element_size()
+    rows = n // CLASSES
+    flat_labels = labels.reshape(-1).long()
+    library = lambda t: F.cross_entropy(t.reshape(-1, CLASSES), flat_labels)
+    res = dict(kernel="fused_cross_entropy", shape=list(shape), dtype=dtype_name(dtype),
+               tolerance="loss 1e-5, dlogits 1e-5 (f32) / 2^-7 (bf16) of the largest entry",
+               max_abs_err=abs(loss.item() - ref.item()), grad_max_abs_err=grad_err,
+               fwd_ms=time_ms(lambda: ops.fused_cross_entropy(logits, labels)),
+               fwd_bwd_ms=time_ms(lambda: fwd_bwd(lambda t: ops.fused_cross_entropy(t, labels))),
+               plain_fwd_bwd_ms=time_ms(lambda: (
+                   ops.fused_cross_entropy_reference(logits, labels),
+                   ops.fused_cross_entropy_grad_reference(logits, labels, loss.detach()))),
+               library_fwd_ms=time_ms(lambda: library(logits)),
+               library_fwd_bwd_ms=time_ms(lambda: fwd_bwd(library)))
+    # forward: logits and labels read once; backward: read again, dlogits written
+    res["bound_ms"], res["bound_by"] = roofline(3 * n * elt + 8 * rows + 8, 30 * n)
+    print("kernel check", json.dumps(res), flush=True)
+    return res
+
+
+def dihedral_only(augment):
+    """The weak pipeline with every stage that is not ported yet switched off."""
+    return dataclasses.replace(augment.WEAK, **{p: 0.0 for p in augment.UNPORTED_STAGES})
+
+
+def train_batches(host_rng, n, batch=TRAIN_BATCH, tile=TILE):
+    return [(host_rng.integers(0, 256, (batch, tile, tile, 3), dtype=np.uint8),
+             host_rng.integers(0, CLASSES, (batch, tile, tile), dtype=np.uint8))
+            for _ in range(n)]
+
+
+def kernel_counters():
+    """name -> the wrapper function carrying that kernel's ``launches`` count."""
+    from uda_aerial_semantic_segmentation_research_tpu_torch.ops import (
+        channel_sums,
+        conv_bn_relu,
+        dihedral,
+        fused_ce,
+    )
+
+    return {"conv_bn_relu": conv_bn_relu.conv_bn_relu,
+            "channel_sums": channel_sums.channel_sums,
+            "channel_dual_sums": channel_sums.channel_dual_sums,
+            "dihedral_normalize": dihedral.dihedral_normalize,
+            "fused_cross_entropy": fused_ce.fused_cross_entropy}
+
+
+def reset_counts(counters):
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def read_counts(counters):
+    return {name: fn.launches for name, fn in counters.items()}
+
+
+def probe_batch(batch: int) -> int:
+    """Does a bf16 train step of the full-width model fit at ``batch``?
+    Prints one JSON line with the answer, the peak memory and the step time."""
+    from uda_aerial_semantic_segmentation_research_tpu_torch.models import create_unet
+    from uda_aerial_semantic_segmentation_research_tpu_torch.ops import augment
+    from uda_aerial_semantic_segmentation_research_tpu_torch.training.state import (
+        TrainState,
+        adam,
+    )
+    from uda_aerial_semantic_segmentation_research_tpu_torch.training.steps import (
+        make_supervised_train_step,
+    )
+
+    model = create_unet("resnet34", classes=CLASSES, seed=SEED, dtype=torch.bfloat16,
+                        device="cuda")
+    state = TrainState(model, adam(1e-4))
+    step = make_supervised_train_step(model, CLASSES, aug_cfg=dihedral_only(augment),
+                                      fused_ce=True)
+    images, masks = (torch.from_numpy(a).cuda() for a in
+                     train_batches(np.random.default_rng(SEED), 1, batch)[0])
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    result = {"batch": batch, "tile": TILE, "dtype": "bfloat16", "card": card_line()}
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        step(state, gen, images, masks)
+        torch.cuda.synchronize()
+        result["step_ms"] = time_ms(lambda: step(state, gen, images, masks), reps=3, warmup=0)
+        result["fits"] = True
+    except torch.cuda.OutOfMemoryError as e:
+        result["fits"] = False
+        result["error"] = str(e).splitlines()[0][:200]
+    result["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(json.dumps({"probe": result}), flush=True)
+    return 0
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--probe-batch", type=int, default=None,
+                        help="only run train steps at this batch size and report "
+                             "whether they fit in device memory")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -209,10 +449,25 @@ def main() -> int:
         predict_raster,
     )
     from uda_aerial_semantic_segmentation_research_tpu_torch.models import create_unet
-    from uda_aerial_semantic_segmentation_research_tpu_torch.ops import _build
+    from uda_aerial_semantic_segmentation_research_tpu_torch.ops import (
+        _build,
+        augment,
+        channel_sums as sums_ops,
+        dihedral as dihedral_ops,
+        fused_ce as ce_ops,
+    )
     from uda_aerial_semantic_segmentation_research_tpu_torch.ops import conv_bn_relu as cbr
+    from uda_aerial_semantic_segmentation_research_tpu_torch.ops.batch_norm import (
+        BatchNorm,
+    )
+    from uda_aerial_semantic_segmentation_research_tpu_torch.training.state import (
+        TrainState,
+        adam,
+    )
     from uda_aerial_semantic_segmentation_research_tpu_torch.training.steps import (
+        make_eval_step,
         make_predict_step,
+        make_supervised_train_step,
     )
 
     conv_bn_relu, reference = cbr.conv_bn_relu, cbr.conv_bn_relu_reference
@@ -225,13 +480,19 @@ def main() -> int:
     print(f"device: {card} | torch {torch.__version__} cuda {torch.version.cuda} "
           f"| {kind}", flush=True)
 
-    # 2. build
+    # 2. build: one nvcc per source, all started together
+    libraries = ("conv_bn_relu", "channel_sums", "dihedral_normalize", "fused_cross_entropy")
     t0 = time.perf_counter()
-    cbr._library()
-    print(f"build: conv_bn_relu nvcc {_build.build_seconds['conv_bn_relu']:.1f} s, "
-          f"load {time.perf_counter() - t0:.1f} s", flush=True)
+    _build.build_libraries(libraries)
+    for module in (cbr, sums_ops, dihedral_ops, ce_ops):
+        module._library()
+    print("build: " + ", ".join(f"{n} nvcc {_build.build_seconds[n]:.1f} s" for n in libraries)
+          + f"; all built and loaded in {time.perf_counter() - t0:.1f} s", flush=True)
+    if args.probe_batch is not None:
+        return probe_batch(args.probe_batch)
+    counters = kernel_counters()
 
-    # 3. kernel vs plain version on the card
+    # 3a. conv_bn_relu vs plain version on the card
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     results = []
     for shape in SLICE_SHAPES:
@@ -248,38 +509,39 @@ def main() -> int:
 
     # 4. the serving path: resnet34 U-Net, 23 classes, 512 px, bf16
     host_rng = np.random.default_rng(SEED)
-    model = create_unet("resnet34", classes=23, seed=SEED, dtype=torch.bfloat16,
+    model = create_unet("resnet34", classes=CLASSES, seed=SEED, dtype=torch.bfloat16,
                         device="cuda", fused_eval=True)
     randomize_batch_norms_(model, torch.Generator().manual_seed(SEED))
-    batch = host_rng.integers(0, 256, (32, 512, 512, 3), dtype=np.uint8)
+    batch = host_rng.integers(0, 256, (32, TILE, TILE, 3), dtype=np.uint8)
     raster = host_rng.integers(0, 256, (1500, 2000, 3), dtype=np.uint8)
-    n_raster_tiles = len(tile_grid(1500, 2000, 512, 64))
+    n_raster_tiles = len(tile_grid(1500, 2000, TILE, 64))
     raster_forwards = -(-n_raster_tiles // 8)
 
-    conv_bn_relu.launches = 0
+    reset_counts(counters)
     preds = predict_batch(model, batch)
     torch.cuda.synchronize()
     batch_launches = conv_bn_relu.launches
-    label_map = predict_raster(model, raster, tile=512, overlap=64, batch_size=8)
+    label_map = predict_raster(model, raster, tile=TILE, overlap=64, batch_size=8)
     torch.cuda.synchronize()
-    launches = conv_bn_relu.launches
-    print(f"main path: predict_batch launches {batch_launches}, predict_raster "
+    serving_counts = read_counts(counters)
+    launches = serving_counts["conv_bn_relu"]
+    print(f"main path (serving): predict_batch launches {batch_launches}, predict_raster "
           f"launches {launches - batch_launches} over {raster_forwards} forwards "
           f"({n_raster_tiles} tiles)", flush=True)
     if batch_launches != 2 or launches - batch_launches != 2 * raster_forwards:
         raise AssertionError("the kernel did not run exactly twice per forward")
-    if preds.shape != (32, 512, 512) or preds.dtype != np.int32:
+    if preds.shape != (32, TILE, TILE) or preds.dtype != np.int32:
         raise AssertionError(f"predict_batch gave {preds.shape} {preds.dtype}")
     if label_map.shape != (1500, 2000) or label_map.dtype != np.int32:
         raise AssertionError(f"predict_raster gave {label_map.shape} {label_map.dtype}")
     for labels in (preds, label_map):
-        if labels.min() < 0 or labels.max() >= 23:
+        if labels.min() < 0 or labels.max() >= CLASSES:
             raise AssertionError("labels out of range")
 
     step = make_predict_step(model)
     batch_dev = torch.from_numpy(batch).cuda()
     logits = step(batch_dev)
-    if not torch.isfinite(logits).all() or tuple(logits.shape) != (32, 512, 512, 23):
+    if not torch.isfinite(logits).all() or tuple(logits.shape) != (32, TILE, TILE, CLASSES):
         raise AssertionError("bf16 logits not finite or of the wrong shape")
     torch.cuda.reset_peak_memory_stats()
     forward_ms = time_ms(lambda: step(batch_dev), reps=10)
@@ -288,28 +550,175 @@ def main() -> int:
                       "card": card}), flush=True)
 
     # fused vs plain decoder in f32 (TF32 off), same weights
-    state = model.state_dict()
+    state_dict = model.state_dict()
     logits32 = {}
     for fused in (True, False):
-        m32 = create_unet("resnet34", classes=23, seed=SEED, dtype=torch.float32,
+        m32 = create_unet("resnet34", classes=CLASSES, seed=SEED, dtype=torch.float32,
                           device="cuda", fused_eval=fused)
-        m32.load_state_dict(state, strict=True)
+        m32.load_state_dict(state_dict, strict=True)
         logits32[fused] = make_predict_step(m32)(batch_dev[:4])
         del m32
     torch.testing.assert_close(logits32[True], logits32[False], atol=1e-3, rtol=1e-3)
     f32_err = (logits32[True] - logits32[False]).abs().max().item()
     print(json.dumps({"serving": {
         "model": "resnet34 U-Net, 23 classes, fused_eval", "dtype": "bfloat16",
-        "batch": 32, "tile": 512, "forward_ms": forward_ms,
+        "batch": 32, "tile": TILE, "forward_ms": forward_ms,
         "tiles_per_s": 32 / forward_ms * 1e3, "peak_mem_gib": peak_gib,
         "f32_fused_vs_plain_max_abs_err": f32_err, "card": card}}), flush=True)
+    del model, step, logits, logits32, state_dict, batch_dev
+    torch.cuda.empty_cache()
 
-    # 5. results
-    entry = {
-        "name": "conv_bn_relu", "route": "cuda",
-        "source": "uda_aerial_semantic_segmentation_research_tpu_torch/csrc/conv_bn_relu.cu",
-        "replaces": "uda_aerial_semantic_segmentation_research_tpu/ops/pallas_conv.py:173",
-        "launches": launches,
+    # 5. the train path: same width, B=32, bf16, dihedral-only augmentation,
+    #    fused CE, Adam; 5 steps from seeded weights and seeded numpy batches
+    cfg = dihedral_only(augment)
+    model = create_unet("resnet34", classes=CLASSES, seed=SEED, dtype=torch.bfloat16,
+                        device="cuda", fused_eval=True)
+    n_bn = sum(isinstance(m, BatchNorm) for m in model.modules())
+    batches = train_batches(host_rng, TRAIN_STEPS)
+    train_gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    # one step on a copy: warms the allocator and cuDNN, and takes the census
+    # of BatchNorm input shapes for the kernel timings below
+    bn_shapes = collections.Counter()
+    warm = copy.deepcopy(model)
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, inp: bn_shapes.update([tuple(inp[0].permute(0, 2, 3, 1).shape)]))
+        for m in warm.modules() if isinstance(m, BatchNorm)]
+    make_supervised_train_step(warm, CLASSES, aug_cfg=cfg, fused_ce=True)(
+        TrainState(warm, adam(1e-4)), torch.Generator(device="cuda").manual_seed(SEED + 1),
+        *batches[0])
+    torch.cuda.synchronize()
+    del warm, hooks
+    torch.cuda.empty_cache()
+    if sum(bn_shapes.values()) != n_bn:
+        raise AssertionError("the BatchNorm census missed a module")
+    print("BatchNorm inputs of a train step (NHWC shape: count): "
+          + ", ".join(f"{s}: {n}" for s, n in sorted(bn_shapes.items())), flush=True)
+
+    state = TrainState(model, adam(1e-4))
+    train_step = make_supervised_train_step(model, CLASSES, aug_cfg=cfg, fused_ce=True)
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    reset_counts(counters)
+    step_metrics = []
+    for images, masks in batches:
+        state, metrics = train_step(state, train_gen, images, masks)
+        step_metrics.append(metrics)
+    torch.cuda.synchronize()
+    train_counts = read_counts(counters)
+    expected = {"conv_bn_relu": 0, "channel_sums": n_bn * TRAIN_STEPS,
+                "channel_dual_sums": n_bn * TRAIN_STEPS,
+                "dihedral_normalize": TRAIN_STEPS, "fused_cross_entropy": 2 * TRAIN_STEPS}
+    print(f"main path (training): {TRAIN_STEPS} steps, {n_bn} BatchNorm modules, "
+          f"launches {json.dumps(train_counts)}", flush=True)
+    if train_counts != expected:
+        raise AssertionError(f"launch counts {train_counts}, expected {expected}")
+    losses = [m["loss"].item() for m in step_metrics]
+    if not all(np.isfinite(losses)) or state.step != TRAIN_STEPS or not model.training:
+        raise AssertionError(f"train losses {losses}, step {state.step}")
+    for m in step_metrics:
+        if m["hist"].sum().item() != TRAIN_BATCH * TILE * TILE:
+            raise AssertionError("hist does not count every pixel")
+        if not all(torch.isfinite(m[k]).all() for k in ("iou", "accuracy", "per_class_iou")):
+            raise AssertionError("metrics not finite")
+    after = model.state_dict()
+    unchanged = [k for k, v in before.items() if torch.equal(v, after[k])]
+    # a zero-initialised last BatchNorm scale of a residual block gets a
+    # gradient, so every parameter and every buffer must have moved
+    if unchanged:
+        raise AssertionError(f"left unchanged by training: {unchanged[:5]}")
+    del before
+
+    dev_batches = [tuple(torch.from_numpy(a).cuda() for a in b) for b in batches]
+    turn = iter(range(10 ** 9))
+    timed_step = lambda: train_step(state, train_gen, *dev_batches[next(turn) % TRAIN_STEPS])
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = time_ms(timed_step, reps=5, warmup=1)
+    train_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(json.dumps({"train_profile": profile_forward(timed_step), "card": card}),
+          flush=True)
+    print(json.dumps({"train": {
+        "model": "resnet34 U-Net, 23 classes", "dtype": "bfloat16", "batch": TRAIN_BATCH,
+        "tile": TILE, "augmentation": "dihedral only", "fused_ce": True,
+        "optimizer": "adam(1e-4)", "batch_norm_modules": n_bn, "losses": losses,
+        "step_ms": step_ms, "tiles_per_s": TRAIN_BATCH / step_ms * 1e3,
+        "peak_mem_gib": train_peak_gib, "timed_with": "batches already on the device",
+        "card": card}}), flush=True)
+
+    # 6. the eval step on the trained model: fused decoder, 2 kernel launches
+    reset_counts(counters)
+    eval_metrics = make_eval_step(model, CLASSES)(*batches[0])
+    torch.cuda.synchronize()
+    eval_counts = read_counts(counters)
+    print(f"main path (eval step): launches {json.dumps(eval_counts)}, "
+          f"loss {eval_metrics['loss'].item():.4f}", flush=True)
+    if eval_counts["conv_bn_relu"] != 2 or sum(eval_counts.values()) != 2:
+        raise AssertionError(f"eval step launch counts {eval_counts}")
+    if (not torch.isfinite(eval_metrics["loss"])
+            or eval_metrics["hist"].sum().item() != TRAIN_BATCH * TILE * TILE):
+        raise AssertionError("eval step metrics are off")
+    del model, state, train_step, dev_batches, step_metrics, eval_metrics
+    torch.cuda.empty_cache()
+
+    # 3b. the three training kernels vs their plain versions at the step's shapes
+    sums_results = []
+    for shape in sorted(bn_shapes):
+        sums_results.append(check_sums(sums_ops, gen, shape, torch.bfloat16, timed=True))
+    for shape in [(32, 512, 512, 16), (32, 256, 256, 32), (32, 16, 16, 512)]:
+        if shape not in bn_shapes:
+            raise AssertionError(f"{shape} is no BatchNorm input of the step")
+        check_sums(sums_ops, gen, shape, torch.float32, timed=True)
+    for dtype in (torch.bfloat16, torch.float32):
+        check_sums(sums_ops, gen, SUMS_RAGGED, dtype, timed=False)
+    dihedral_result = check_dihedral(dihedral_ops, host_rng)
+    ce_results = {dt: check_fused_ce(ce_ops, gen, dt) for dt in (torch.float32, torch.bfloat16)}
+
+    # 7. one float32 train step on the card (kernels) against the same step on
+    #    a CPU copy of the model (plain versions), same flags.  Tolerances:
+    #    loss 1e-4 relative; hist may differ by 0.1% of the pixels (argmax of
+    #    near-ties); all gradients together 5e-2 relative in L2 and the head's
+    #    kernel 1e-3 of its largest entry -- through the whole network single
+    #    ReLU units flip under float32 noise (tests/test_torch_train_step.py).
+    small = train_batches(host_rng, 1, batch=2, tile=256)[0]
+    abc = tuple(torch.tensor(v) for v in ([True, False], [False, True], [True, True]))
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    runs = {}
+    for device in ("cuda", "cpu"):
+        m32 = create_unet("resnet34", classes=CLASSES, seed=SEED, dtype=torch.float32,
+                          device=device)
+        s32 = TrainState(m32, adam(1e-4))
+        reset_counts(counters)
+        _, met = make_supervised_train_step(m32, CLASSES, aug_cfg=cfg32, fused_ce=True)(
+            s32, None, *small, abc=abc)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        if (sum(read_counts(counters).values()) > 0) != (device == "cuda"):
+            raise AssertionError(f"kernel launches on {device}: {read_counts(counters)}")
+        runs[device] = (met["loss"].item(), met["hist"].cpu(),
+                        {k: p.grad.detach().cpu() for k, p in m32.named_parameters()})
+        del m32, s32
+    (loss_gpu, hist_gpu, g_gpu), (loss_cpu, hist_cpu, g_cpu) = runs["cuda"], runs["cpu"]
+    flat = lambda g: torch.cat([g[k].reshape(-1) for k in sorted(g)])
+    grad_rel_l2 = ((flat(g_gpu) - flat(g_cpu)).norm() / flat(g_cpu).norm()).item()
+    head = "segmentation_head.weight"
+    head_err = ((g_gpu[head] - g_cpu[head]).abs().max() / g_cpu[head].abs().max()).item()
+    hist_l1 = (hist_gpu - hist_cpu).abs().sum().item()
+    print(json.dumps({"f32_step_gpu_vs_cpu": {
+        "loss_gpu": loss_gpu, "loss_cpu": loss_cpu, "hist_l1_diff": hist_l1,
+        "grad_rel_l2": grad_rel_l2, "head_kernel_grad_max_rel_err": head_err}}), flush=True)
+    if (abs(loss_gpu - loss_cpu) > 1e-4 * abs(loss_cpu) or grad_rel_l2 > 5e-2
+            or head_err > 1e-3 or hist_l1 > 2 * 0.001 * 2 * 256 * 256):
+        raise AssertionError("float32 train step on the card disagrees with the CPU")
+
+    # 8. results
+    total = {k: serving_counts[k] + train_counts[k] + eval_counts[k] for k in counters}
+    if min(total.values()) == 0:
+        raise AssertionError(f"a kernel never launched on the main paths: {total}")
+    src = f"{PORT}/csrc"
+    per_step = lambda key: sum(r[key] * bn_shapes[tuple(r["shape"])] for r in sums_results)
+    ce32 = ce_results[torch.float32]
+    entries = [{
+        "name": "conv_bn_relu", "route": "cuda", "source": f"{src}/conv_bn_relu.cu",
+        "replaces": f"{JAX_OPS}/pallas_conv.py:173", "launches": total["conv_bn_relu"],
         "max_abs_err": max(r["max_abs_err"] for r in results),
         # per forward: the two decoder launches at B=32, bf16, with the affine
         "ms": sum(r["kernel_ms"] for r in path_cases),
@@ -318,8 +727,46 @@ def main() -> int:
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in path_cases)
         else "operations",
         "library_ms": sum(r["library_ms"] for r in path_cases),
-    }
-    print(json.dumps({"kernels": [entry]}))
+    }, {
+        # per train step: one forward and one backward launch per BatchNorm
+        "name": "channel_sums", "route": "cuda", "source": f"{src}/channel_sums.cu",
+        "replaces": f"{JAX_OPS}/pallas_moments.py:75 and :91",
+        "launches": total["channel_sums"] + total["channel_dual_sums"],
+        "launches_forward": total["channel_sums"],
+        "launches_backward": total["channel_dual_sums"],
+        "max_abs_err": max(r["max_abs_err"] for r in sums_results),
+        "max_rel_err": max(r["max_rel_err"] for r in sums_results),
+        "ms": per_step("sums_ms") + per_step("dual_ms"),
+        "forward_ms": per_step("sums_ms"), "backward_ms": per_step("dual_ms"),
+        "plain_ms": per_step("sums_plain_ms") + per_step("dual_plain_ms"),
+        "forward_plain_ms": per_step("sums_plain_ms"),
+        "backward_plain_ms": per_step("dual_plain_ms"),
+        "bound_ms": per_step("sums_bound_ms") + per_step("dual_bound_ms"),
+        "forward_bound_ms": per_step("sums_bound_ms"),
+        "backward_bound_ms": per_step("dual_bound_ms"),
+        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in sums_results)
+        else "operations",
+        "library_ms": per_step("sums_library_ms") + per_step("dual_library_ms"),
+        "forward_library_ms": per_step("sums_library_ms"),
+        "backward_library_ms": per_step("dual_library_ms"),
+    }, {
+        "name": "dihedral_normalize", "route": "cuda",
+        "source": f"{src}/dihedral_normalize.cu",
+        "replaces": f"{JAX_OPS}/pallas_ops.py:138", "launches": total["dihedral_normalize"],
+        "max_abs_err": dihedral_result["max_abs_err"], "ms": dihedral_result["kernel_ms"],
+        "plain_ms": dihedral_result["plain_ms"], "bound_ms": dihedral_result["bound_ms"],
+        "bound_by": dihedral_result["bound_by"], "library_ms": None,
+    }, {
+        # per train step: forward + backward on the f32 logits the model returns
+        "name": "fused_cross_entropy", "route": "cuda",
+        "source": f"{src}/fused_cross_entropy.cu",
+        "replaces": f"{JAX_OPS}/pallas_ops.py:267", "launches": total["fused_cross_entropy"],
+        "max_abs_err": max(ce32["max_abs_err"], ce32["grad_max_abs_err"]),
+        "ms": ce32["fwd_bwd_ms"], "forward_ms": ce32["fwd_ms"],
+        "plain_ms": ce32["plain_fwd_bwd_ms"], "bound_ms": ce32["bound_ms"],
+        "bound_by": ce32["bound_by"], "library_ms": ce32["library_fwd_bwd_ms"],
+    }]
+    print(json.dumps({"kernels": entries}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -1,0 +1,344 @@
+"""The port's per-channel sums and train-mode BatchNorm against the JAX
+package (CPU), and the CUDA kernels against their plain versions (card).
+
+Tolerances, all float32 with sums taken in another order on each side:
+- sums: 1e-5 relative (plus 1e-4 absolute for sums that cancel to ~0);
+- BatchNorm values, running statistics and gradients: 1e-5;
+- on the card: kernel vs plain version 1e-5 relative to sum|terms|.
+
+JAX is imported inside the tests that need it, so the GPU tests run on a
+machine without JAX: ``python -m pytest --noconftest -m gpu
+tests/test_torch_channel_sums.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from uda_aerial_semantic_segmentation_research_tpu_torch.ops.batch_norm import (
+    EPS,
+    BatchNorm,
+    bn_train,
+)
+from uda_aerial_semantic_segmentation_research_tpu_torch.ops.channel_sums import (
+    channel_dual_sums,
+    channel_dual_sums_reference,
+    channel_sums,
+    channel_sums_reference,
+)
+
+RTOL = 1e-5
+
+
+def _pair(c, rows=1024, seed=0, dtype=np.float32):
+    rng = np.random.default_rng(seed + c)
+    x = (rng.normal(size=(rows, c)) * 2.0 + 0.5).astype(dtype)
+    dy = rng.normal(size=(rows, c)).astype(dtype)
+    return dy, x
+
+
+# ---------------------------------------------------------------------------
+# sums
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("c", [16, 64, 128, 256])
+def test_channel_sums_match_pallas_lane_sums(c):
+    """Plain versions vs ``lane_sums`` / ``lane_dual_sums`` (interpret mode)
+    on the flat lane view, folded to channels by ``lane_bn._fold``."""
+    import jax.numpy as jnp
+
+    from uda_aerial_semantic_segmentation_research_tpu.ops.lane_bn import _fold
+    from uda_aerial_semantic_segmentation_research_tpu.ops.pallas_moments import (
+        lane_dual_sums,
+        lane_sums,
+    )
+
+    dy, x = _pair(c)
+    lanes = max(128, c)
+    s, q = lane_sums(jnp.asarray(x).reshape(-1, lanes), interpret=True)
+    sd, sdx = lane_dual_sums(jnp.asarray(dy).reshape(-1, lanes),
+                             jnp.asarray(x).reshape(-1, lanes), interpret=True)
+    got = channel_sums(torch.from_numpy(x)).numpy()
+    got_dual = channel_dual_sums(torch.from_numpy(dy), torch.from_numpy(x)).numpy()
+    assert got.shape == got_dual.shape == (2, c) and got.dtype == np.float32
+    np.testing.assert_allclose(got[0], np.asarray(_fold(s, c)), rtol=RTOL, atol=1e-4)
+    np.testing.assert_allclose(got[1], np.asarray(_fold(q, c)), rtol=RTOL, atol=1e-4)
+    np.testing.assert_allclose(got_dual[0], np.asarray(_fold(sd, c)), rtol=RTOL, atol=1e-4)
+    np.testing.assert_allclose(got_dual[1], np.asarray(_fold(sdx, c)), rtol=RTOL, atol=1e-4)
+
+
+def test_channel_sums_take_a_shape_the_lane_fold_rejects():
+    """C=24 over 3*7*5 rows: the TPU fold refuses it, the port takes it."""
+    import jax.numpy as jnp
+
+    from uda_aerial_semantic_segmentation_research_tpu.ops.lane_bn import _foldable
+
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(3, 7, 5, 24)).astype(np.float32)
+    dy = rng.normal(size=(3, 7, 5, 24)).astype(np.float32)
+    assert not _foldable(jnp.asarray(x), 24)
+    x64, dy64 = x.astype(np.float64), dy.astype(np.float64)
+    got = channel_sums(torch.from_numpy(x)).numpy()
+    got_dual = channel_dual_sums(torch.from_numpy(dy), torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got[0], x64.sum((0, 1, 2)), rtol=RTOL, atol=1e-4)
+    np.testing.assert_allclose(got[1], (x64 * x64).sum((0, 1, 2)), rtol=RTOL, atol=1e-4)
+    np.testing.assert_allclose(got_dual[0], dy64.sum((0, 1, 2)), rtol=RTOL, atol=1e-4)
+    np.testing.assert_allclose(got_dual[1], (dy64 * x64).sum((0, 1, 2)), rtol=RTOL, atol=1e-4)
+
+
+def test_channel_sums_bf16_accumulate_in_f32():
+    dy, x = _pair(16, rows=4096)
+    xb, dyb = torch.from_numpy(x).bfloat16(), torch.from_numpy(dy).bfloat16()
+    got = channel_sums(xb)
+    assert got.dtype == torch.float32
+    x64 = xb.double()
+    torch.testing.assert_close(got[0].double(), x64.sum(0), rtol=RTOL, atol=1e-3)
+    torch.testing.assert_close(got[1].double(), (x64 * x64).sum(0), rtol=RTOL, atol=1e-3)
+    mixed = channel_dual_sums(dyb, torch.from_numpy(x))       # bf16 dy, f32 x
+    torch.testing.assert_close(mixed[1].double(),
+                               (dyb.double() * torch.from_numpy(x).double()).sum(0),
+                               rtol=RTOL, atol=1e-3)
+
+
+def test_cpu_wrappers_route_to_the_plain_versions():
+    dy, x = (torch.from_numpy(a) for a in _pair(32, rows=64))
+    before = channel_sums.launches, channel_dual_sums.launches
+    assert torch.equal(channel_sums(x), channel_sums_reference(x))
+    assert torch.equal(channel_dual_sums(dy, x), channel_dual_sums_reference(dy, x))
+    assert (channel_sums.launches, channel_dual_sums.launches) == before
+
+
+@pytest.mark.parametrize("bad", ["non_contiguous", "rank", "empty", "shape", "meta_device"])
+def test_wrappers_reject_what_they_cannot_take(bad):
+    x = torch.zeros(2, 4, 4, 8)
+    dy = torch.zeros(2, 4, 4, 8)
+    if bad == "non_contiguous":
+        x = torch.zeros(2, 8, 4, 4).permute(0, 2, 3, 1)    # NCHW memory, NHWC view
+    elif bad == "rank":
+        x = dy = torch.zeros(8)
+    elif bad == "empty":
+        x = dy = torch.zeros(0, 8)
+    elif bad == "shape":
+        dy = torch.zeros(2, 4, 4, 4)
+    else:
+        x, dy = x.to("meta"), dy.to("meta")
+    with pytest.raises(ValueError):
+        channel_dual_sums(dy, x)
+    if bad != "shape":
+        with pytest.raises(ValueError):
+            channel_sums(x)
+
+
+def test_nhwc_view_of_channels_last_is_taken_without_a_copy():
+    x = torch.randn(2, 8, 4, 4, generator=torch.Generator().manual_seed(0))
+    x = x.contiguous(memory_format=torch.channels_last)
+    got = channel_sums(x.permute(0, 2, 3, 1))
+    torch.testing.assert_close(got[0], x.sum((0, 2, 3)), rtol=RTOL, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# train-mode BatchNorm
+# ---------------------------------------------------------------------------
+def _bn_case(c, dtype, seed=0, shape=(4, 8, 8)):
+    rng = np.random.RandomState(seed + c)
+    x = (rng.randn(*shape, c) * 2.0 + 0.5).astype(np.float32)        # NHWC
+    scale = (rng.rand(c) + 0.5).astype(np.float32)
+    bias = rng.randn(c).astype(np.float32)
+    return x, scale, bias
+
+
+def _jax_bn(x, scale, bias, x_dtype, norm_dtype, lane):
+    """y, new batch_stats, and d(sum(sin(y)*y))/d(x, scale, bias) of the JAX
+    ``lane_bn.BatchNorm`` in train mode."""
+    import jax
+    import jax.numpy as jnp
+
+    from uda_aerial_semantic_segmentation_research_tpu.ops.lane_bn import (
+        BatchNorm as JaxBatchNorm,
+    )
+
+    c = x.shape[-1]
+    mod = JaxBatchNorm(use_running_average=False, momentum=0.9, epsilon=1e-5,
+                       dtype=norm_dtype, param_dtype=jnp.float32, lane=lane)
+    stats = {"mean": jnp.full((c,), 0.3), "var": jnp.full((c,), 2.0)}
+    xj = jnp.asarray(x).astype(x_dtype)
+
+    def loss(params, xj):
+        y, upd = mod.apply({"params": params, "batch_stats": stats}, xj,
+                           mutable=["batch_stats"])
+        y32 = y.astype(jnp.float32)
+        return jnp.sum(jnp.sin(y32) * y32), (y, upd["batch_stats"])
+
+    params = {"scale": jnp.asarray(scale), "bias": jnp.asarray(bias)}
+    (_, (y, bs)), (dp, dx) = jax.value_and_grad(loss, argnums=(0, 1), has_aux=True)(
+        params, xj)
+    f32 = lambda a: np.asarray(a.astype(jnp.float32))
+    return f32(y), f32(bs["mean"]), f32(bs["var"]), f32(dx), f32(dp["scale"]), f32(dp["bias"])
+
+
+def _port_bn(x, scale, bias, x_dtype, norm_dtype):
+    c = x.shape[-1]
+    bn = BatchNorm(c, dtype=norm_dtype).train()
+    with torch.no_grad():
+        bn.scale.copy_(torch.from_numpy(scale))
+        bn.bias.copy_(torch.from_numpy(bias))
+        bn.mean.fill_(0.3)
+        bn.var.fill_(2.0)
+    xt = torch.from_numpy(x).to(x_dtype).permute(0, 3, 1, 2).requires_grad_()  # channels_last
+    y = bn(xt)
+    y32 = y.float()
+    (torch.sin(y32) * y32).sum().backward()
+    nhwc = lambda t: t.detach().float().permute(0, 2, 3, 1).numpy()
+    return (nhwc(y), bn.mean.numpy(), bn.var.numpy(), nhwc(xt.grad),
+            bn.scale.grad.numpy(), bn.bias.grad.numpy())
+
+
+@pytest.mark.parametrize("lane", ["auto", False])
+@pytest.mark.parametrize("c", [16, 64, 24])
+def test_train_batch_norm_matches_jax_f32(c, lane):
+    """y, running statistics and gradients vs ``lane_bn.BatchNorm`` on its
+    folded path (default) and its fallback (``lane=False``); C=24 takes the
+    fallback on the JAX side either way."""
+    import jax.numpy as jnp
+
+    x, scale, bias = _bn_case(c, np.float32)
+    ref = _jax_bn(x, scale, bias, jnp.float32, jnp.float32, lane)
+    got = _port_bn(x, scale, bias, torch.float32, torch.float32)
+    for g, r, name in zip(got, ref, ("y", "mean", "var", "dx", "dscale", "dbias")):
+        scale_of = max(1.0, float(np.abs(r).max()))
+        np.testing.assert_allclose(g, r, rtol=1e-5, atol=1e-5 * scale_of, err_msg=name)
+
+
+def test_train_batch_norm_bf16_norm_takes_stats_from_the_raw_f32_input():
+    """f32 input into a bf16 BatchNorm: statistics from the raw input upcast
+    to f32 (1e-5), output one bf16 rounding of the f32 result."""
+    import jax.numpy as jnp
+
+    x, scale, bias = _bn_case(16, np.float32, seed=3)
+    ref = _jax_bn(x, scale, bias, jnp.float32, jnp.bfloat16, "auto")
+    got = _port_bn(x, scale, bias, torch.float32, torch.bfloat16)
+    np.testing.assert_allclose(got[1], ref[1], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got[2], ref[2], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got[0], ref[0], rtol=1 / 128, atol=1e-2)   # one bf16 ulp
+
+
+def test_train_batch_norm_bf16_input():
+    """bf16 input and bf16 output: statistics in f32 from the bf16 values."""
+    import jax.numpy as jnp
+
+    x, scale, bias = _bn_case(64, np.float32, seed=5)
+    ref = _jax_bn(x, scale, bias, jnp.bfloat16, jnp.bfloat16, "auto")
+    got = _port_bn(x, scale, bias, torch.bfloat16, torch.bfloat16)
+    np.testing.assert_allclose(got[1], ref[1], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got[2], ref[2], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got[0], ref[0], rtol=1 / 128, atol=2e-2)
+    np.testing.assert_allclose(got[3], ref[3], rtol=1 / 64, atol=2e-2)    # dx in bf16
+    np.testing.assert_allclose(got[4], ref[4], rtol=2e-3, atol=2e-2)
+    np.testing.assert_allclose(got[5], ref[5], rtol=2e-3, atol=2e-2)
+
+
+def test_running_statistics_take_the_biased_variance_and_no_gradient():
+    x, scale, bias = _bn_case(8, np.float32, seed=7, shape=(2, 3, 3))
+    bn = BatchNorm(8, dtype=torch.float32).train()
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2)
+    bn(xt)
+    flat = torch.from_numpy(x).reshape(-1, 8)
+    torch.testing.assert_close(bn.mean, 0.1 * flat.mean(0), rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(bn.var, 0.9 + 0.1 * flat.var(0, unbiased=False),
+                               rtol=1e-5, atol=1e-6)
+    assert not bn.mean.requires_grad and not bn.var.requires_grad
+    y, mean, var = bn_train(xt.requires_grad_(), bn.scale, bn.bias, torch.float32)
+    assert y.requires_grad and not mean.requires_grad and not var.requires_grad
+
+
+def test_bn_train_gradients_match_finite_differences():
+    """float64 through the plain versions: the hand-written backward of
+    ``bn_train`` against finite differences."""
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 5, 3, 3, dtype=torch.float64, generator=gen)
+    x = x.contiguous(memory_format=torch.channels_last).requires_grad_()
+    scale = (torch.rand(5, dtype=torch.float64, generator=gen) + 0.5).requires_grad_()
+    bias = torch.randn(5, dtype=torch.float64, generator=gen).requires_grad_()
+    assert torch.autograd.gradcheck(
+        lambda x, s, b: bn_train(x, s, b, torch.float64)[0], (x, scale, bias),
+        eps=1e-6, atol=1e-5)
+
+
+def test_train_batch_norm_rejects_an_input_that_is_not_channels_last():
+    bn = BatchNorm(4, dtype=torch.float32).train()
+    with pytest.raises(ValueError, match="contiguous"):
+        bn(torch.zeros(2, 4, 3, 3))
+
+
+def test_eval_batch_norm_is_unchanged_by_train_support():
+    bn = BatchNorm(4, dtype=torch.float32).eval()
+    with torch.no_grad():
+        bn.mean.fill_(0.5)
+        bn.var.fill_(4.0)
+    x = torch.ones(1, 4, 2, 2)
+    torch.testing.assert_close(bn(x), torch.full_like(x, 0.5 / (4.0 + EPS) ** 0.5))
+    assert torch.all(bn.mean == 0.5)
+
+
+# ---------------------------------------------------------------------------
+# the kernels on the card
+# ---------------------------------------------------------------------------
+def _assert_sums_close(got, ref, terms):
+    """|got - ref| <= 1e-5 * sum|terms| per channel (f32 sums, other order)."""
+    bound = 1e-5 * terms + 1e-6
+    assert torch.all((got - ref).abs() <= bound), (got - ref).abs().max().item()
+
+
+@pytest.mark.gpu
+def test_kernels_match_plain_versions_on_gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    # vector path (C | 128 and 128 | C), generic path (24, 3, 1000), ragged rows
+    shapes = [(2, 16, 16, 16), (3, 7, 5, 16), (2, 8, 8, 64), (1, 4, 4, 512), (5, 3, 2048),
+              (3, 7, 5, 24), (4, 9, 3), (2, 1000), (1, 1, 1, 8), (70000, 32)]
+    for shape in shapes:
+        for dt_x, dt_dy in ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+                            (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)):
+            x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(dt_x)
+            dy = torch.randn(shape, generator=gen, device="cuda").to(dt_dy)
+            before = channel_sums.launches, channel_dual_sums.launches
+            got = channel_sums(x)
+            got_dual = channel_dual_sums(dy, x)
+            again = channel_sums(x)
+            torch.cuda.synchronize()
+            assert channel_sums.launches == before[0] + 2
+            assert channel_dual_sums.launches == before[1] + 1
+            assert torch.equal(got, again)                       # deterministic
+            x64, dy64 = x.double().reshape(-1, shape[-1]), dy.double().reshape(-1, shape[-1])
+            _assert_sums_close(got[0], x64.sum(0).float(), x64.abs().sum(0).float())
+            _assert_sums_close(got[1], (x64 * x64).sum(0).float(), (x64 * x64).sum(0).float())
+            _assert_sums_close(got_dual[0], dy64.sum(0).float(), dy64.abs().sum(0).float())
+            _assert_sums_close(got_dual[1], (dy64 * x64).sum(0).float(),
+                               (dy64 * x64).abs().sum(0).float())
+    # an unaligned view takes the generic path and still agrees
+    base = torch.randn(4 * 33 * 16 + 1, generator=gen, device="cuda")
+    view = base[1:].view(4, 33, 16)
+    _assert_sums_close(channel_sums(view)[0], view.double().sum((0, 1)).float(),
+                       view.double().abs().sum((0, 1)).float())
+    with pytest.raises(ValueError):
+        channel_sums(torch.zeros(2, 8, 4, 4, device="cuda").permute(0, 2, 3, 1))
+    with pytest.raises(TypeError):
+        channel_sums(torch.zeros(4, 8, device="cuda", dtype=torch.float16))
+
+
+@pytest.mark.gpu
+def test_train_batch_norm_on_gpu_matches_cpu():
+    """bn_train on the card (kernels) vs on the CPU (plain versions), f32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x, scale, bias = _bn_case(32, np.float32, shape=(4, 16, 16))
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        xt = torch.from_numpy(x).to(dev).permute(0, 3, 1, 2).requires_grad_()
+        s = torch.from_numpy(scale).to(dev).requires_grad_()
+        b = torch.from_numpy(bias).to(dev).requires_grad_()
+        y, mean, var = bn_train(xt, s, b, torch.float32)
+        (torch.sin(y) * y).sum().backward()
+        outs[dev] = [t.detach().cpu() for t in (y, mean, var, xt.grad, s.grad, b.grad)]
+    for got, ref in zip(outs["cuda"], outs["cpu"]):
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)

@@ -224,9 +224,17 @@ def test_converter_raises_on_leftover_or_missing(unet_case, change):
 
 
 def test_batch_norm_train_mode_raises():
+    """Train mode is ported: it raises no NotImplementedError any more, only
+    on what it cannot take -- a channel mismatch, or an input whose
+    channel-last view is not contiguous (the sums kernel would have to copy)."""
     bn = BatchNorm(4, dtype=torch.float32)
-    with pytest.raises(NotImplementedError):
-        bn(torch.zeros(1, 4, 2, 2))
+    assert bn.training
+    y = bn(torch.ones(2, 4, 2, 2).contiguous(memory_format=torch.channels_last))
+    assert tuple(y.shape) == (2, 4, 2, 2) and torch.all(y == 0)
+    with pytest.raises(ValueError):
+        bn(torch.zeros(1, 3, 2, 2))
+    with pytest.raises(ValueError):
+        bn(torch.zeros(2, 4, 2, 2))
 
 
 def test_create_unet_without_device_raises_without_cuda(monkeypatch):
@@ -239,13 +247,15 @@ def test_create_unet_without_device_raises_without_cuda(monkeypatch):
 # the port imports no JAX
 # ---------------------------------------------------------------------------
 def test_port_imports_no_jax_in_a_fresh_process():
-    code = (f"import sys, {PORT}.inference.predict, {PORT}.models, "
-            f"{PORT}.ops._build, {PORT}.config; "
+    root = Path(__file__).resolve().parents[1]
+    modules = sorted(".".join(f.relative_to(root).with_suffix("").parts)
+                     for f in (root / PORT).rglob("*.py") if f.name != "__init__.py")
+    assert f"{PORT}.training.steps" in modules and f"{PORT}.ops.fused_ce" in modules
+    code = (f"import sys, {', '.join(modules)}; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'flax', 'optax', "
             "'uda_aerial_semantic_segmentation_research_tpu')); "
             "assert not bad, bad")
-    root = Path(__file__).resolve().parents[1]
     proc = subprocess.run([sys.executable, "-c", code], cwd=root,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr

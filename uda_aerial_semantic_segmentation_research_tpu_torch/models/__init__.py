@@ -17,6 +17,7 @@ import torch
 from uda_aerial_semantic_segmentation_research_tpu_torch.config import Config
 from uda_aerial_semantic_segmentation_research_tpu_torch.models.convert import (
     from_jax_state_dict,
+    to_jax_state_dict,
 )
 from uda_aerial_semantic_segmentation_research_tpu_torch.models.resnet import (
     ENCODERS,
@@ -69,4 +70,5 @@ def create_unet(encoder_name: Optional[str] = None, classes: Optional[int] = Non
 
 
 __all__ = ["ENCODERS", "ResNetEncoder", "Unet", "build_encoder", "create_unet",
-           "encoder_out_channels", "from_jax_state_dict", "init_weights_"]
+           "encoder_out_channels", "from_jax_state_dict", "init_weights_",
+           "to_jax_state_dict"]

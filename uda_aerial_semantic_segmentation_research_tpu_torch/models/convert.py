@@ -1,4 +1,5 @@
-"""Weight bridge: JAX ``ModelBundle.state_dict()`` -> torch ``state_dict``.
+"""Weight bridge between JAX ``ModelBundle.state_dict()`` and torch
+``state_dict`` (``from_jax_state_dict`` and its inverse ``to_jax_state_dict``).
 
 The JAX package flattens its variables to ``{'params/a/b/leaf': array,
 'batch_stats/a/b/leaf': array}``.  The port keeps the same module paths
@@ -24,6 +25,8 @@ import torch
 _AUTO = re.compile(r"^(Conv|BatchNorm)_(\d+)$")
 _LEAVES = {"params": {"kernel", "bias", "scale"}, "batch_stats": {"mean", "var"}}
 _NORM_LEAVES = ("scale", "bias", "mean", "var")
+_PORT_AUTO = re.compile(r"^(conv|bn)(\d+)$")
+_ENCODER_BLOCK = re.compile(r"^stage\d+_block\d+$")
 
 
 def _module_path(parts) -> str:
@@ -65,4 +68,44 @@ def from_jax_state_dict(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         missing = [n for n in _NORM_LEAVES if n not in leaves]
         if leaves & {"scale", "mean", "var"} and missing:
             raise ValueError(f"BatchNorm {path!r} lacks {missing}")
+    return out
+
+
+def _jax_module_path(parts) -> str:
+    """Inverse of ``_module_path``: ``conv{i}`` / ``bn{i}`` directly under an
+    encoder block ``stage{s}_block{b}`` are flax's auto-named ``Conv_{i-1}`` /
+    ``BatchNorm_{i-1}``; every other name is kept."""
+    out = []
+    for i, p in enumerate(parts):
+        m = _PORT_AUTO.match(p)
+        if m and i > 0 and _ENCODER_BLOCK.match(parts[i - 1]):
+            p = ("Conv" if m.group(1) == "conv" else "BatchNorm") + f"_{int(m.group(2)) - 1}"
+        out.append(p)
+    return "/".join(out)
+
+
+def to_jax_state_dict(model: torch.nn.Module, grads: bool = False) -> Dict[str, np.ndarray]:
+    """The model's parameters and BatchNorm buffers under the JAX flat keys
+    (``params/...``, ``batch_stats/...``; conv kernels back in HWIO), as
+    float32 numpy arrays, so that two states compare key by key.
+
+    With ``grads=True`` returns the parameters' ``.grad`` under the
+    ``params/...`` keys instead (a parameter without a gradient raises).
+    """
+    out: Dict[str, np.ndarray] = {}
+    tensors = dict(model.named_parameters())
+    if grads:
+        missing = [k for k, p in tensors.items() if p.grad is None]
+        if missing:
+            raise ValueError(f"parameters without a gradient: {missing}")
+        tensors = {k: p.grad for k, p in tensors.items()}
+    else:
+        tensors.update(model.named_buffers())
+    for name, t in tensors.items():
+        *parts, leaf = name.split(".")
+        arr = t.detach().float().cpu().numpy().copy()   # never a view of the model
+        if leaf == "weight":
+            leaf, arr = "kernel", np.ascontiguousarray(arr.transpose(2, 3, 1, 0))
+        coll = "batch_stats" if leaf in _LEAVES["batch_stats"] else "params"
+        out[f"{coll}/{_jax_module_path(parts)}/{leaf}"] = arr
     return out

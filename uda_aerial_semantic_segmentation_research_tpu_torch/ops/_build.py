@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface.  On first use it is
 compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library
 under ``build/torch_kernels/`` at the root of the checkout and loaded
-with ``ctypes``.  The library's file name carries a hash of its source,
+with ``ctypes``; ``build_libraries`` compiles several sources at once,
+one ``nvcc`` process each.  The library's file name carries a hash of its source,
 so an edited source is rebuilt and a stale library is never loaded.
 Nothing is built at import time: the CPU tests import every module on
 a host without ``nvcc``.
@@ -40,27 +41,37 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def build_library(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its hashed library exists."""
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{name}-{digest}.so"
-    if out.exists():
-        build_seconds.setdefault(name, 0.0)
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)  # atomic: concurrent builders never see a partial file
-    build_seconds[name] = time.perf_counter() - t0
-    return out
+def build_libraries(names) -> dict[str, Path]:
+    """Compile every ``csrc/<name>.cu`` of ``names`` whose hashed library is
+    missing, all ``nvcc`` processes started together, and return the paths."""
+    outs, running = {}, {}
+    for name in names:
+        src = CSRC_DIR / f"{name}.cu"
+        digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+        out = outs[name] = BUILD_DIR / f"lib{name}-{digest}.so"
+        if out.exists():
+            build_seconds.setdefault(name, 0.0)
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True)
+        running[name] = (proc, src, tmp, time.perf_counter())
+    failures = []
+    for name, (proc, src, tmp, t0) in running.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed for {src}:\n{log}")
+            continue
+        os.replace(tmp, outs[name])  # atomic: a concurrent process never loads a partial file
+        build_seconds[name] = time.perf_counter() - t0
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return outs
 
 
 @functools.cache
 def load_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu`` once per process."""
-    return ctypes.CDLL(str(build_library(name)))
+    return ctypes.CDLL(str(build_libraries([name])[name]))

@@ -1,13 +1,21 @@
-"""Eval-mode BatchNorm with the flax formula.
+"""BatchNorm with the flax formula, eval and train mode.
 
-Counterpart of the running-average branch of the JAX package's
-``ops/lane_bn.py::BatchNorm``:
+Counterpart of the JAX package's ``ops/lane_bn.py::BatchNorm``:
 
     y = ((x.f32 - mean) * (rsqrt(var + 1e-5) * scale) + bias).to(dtype)
 
+Eval mode uses the running statistics.  Train mode (``bn_train``, the
+contract of ``lane_bn._bn_train``) takes the batch statistics from the raw
+input upcast to float32 -- ``mean = sum(x)/n``, biased ``var = max(0,
+sum(x*x)/n - mean^2)`` -- with the per-channel sums coming from the
+``ops.channel_sums`` kernels, forward (sum x, sum x*x) and backward
+(sum dy, sum dy*x); the per-channel FMAs around them are plain tensor ops.
+The running statistics move as ``ra = 0.9 * ra + 0.1 * batch`` for the mean
+and the BIASED variance (``nn.BatchNorm2d`` stores the unbiased one), and
+no gradient flows into them.
+
 Parameters are named ``scale``/``bias`` and buffers ``mean``/``var``, as
-in the JAX checkpoint tree.  Train-mode statistics come with the
-training slice; until then a module in train mode raises.
+in the JAX checkpoint tree.
 """
 
 from __future__ import annotations
@@ -15,11 +23,73 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-EPS = 1e-5  # flax / torch default, as every BatchNorm of the JAX package
+from uda_aerial_semantic_segmentation_research_tpu_torch.ops.channel_sums import (
+    channel_dual_sums,
+    channel_sums,
+)
+from uda_aerial_semantic_segmentation_research_tpu_torch.utils.dtypes import to_f32
+
+EPS = 1e-5       # flax / torch default, as every BatchNorm of the JAX package
+MOMENTUM = 0.9   # flax convention (torch's 0.1), as every BatchNorm of the JAX package
+
+
+def _per_channel(v, ndim):
+    return v.view((1, -1) + (1,) * (ndim - 2))
+
+
+class _BNTrain(torch.autograd.Function):
+    """Train-mode BatchNorm over dim 1: ``(x, scale, bias) -> (y, mean, var)``.
+
+    ``mean``/``var`` exist for the running-statistics update only and are
+    non-differentiable by contract.  ``x`` must be channels_last in memory
+    (its channel-last view contiguous); the incoming gradient is brought
+    to that layout if autograd hands it over in another one.
+    """
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, out_dtype):
+        n = x.numel() // x.shape[1]
+        s, q = channel_sums(x.movedim(1, -1))
+        mean = s / n
+        var = torch.clamp_min(q / n - mean * mean, 0.0)
+        inv = torch.rsqrt(var + EPS)
+        mul = inv * scale
+        y = ((to_f32(x) - _per_channel(mean, x.dim())) * _per_channel(mul, x.dim())
+             + _per_channel(bias, x.dim())).to(out_dtype)
+        ctx.save_for_backward(x, mean, inv, scale)
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, mean, inv, scale = ctx.saved_tensors
+        n = x.numel() // x.shape[1]
+        dy_last = dy.movedim(1, -1)
+        if not dy_last.is_contiguous():
+            dy_last = dy_last.contiguous()
+            dy = dy_last.movedim(-1, 1)
+        sd, sdx = channel_dual_sums(dy_last, x.movedim(1, -1))
+        centred = sdx - mean * sd
+        dscale = centred * inv         # sum(dy * xhat)
+        dbias = sd
+        # dx = a*dy + cx*x + d: the BN input gradient with the two sums
+        # substituted analytically
+        a = inv * scale
+        cx = -a * inv * inv * centred / n
+        d = cx * (-mean) - a * sd / n
+        dx = (_per_channel(a, x.dim()) * to_f32(dy) + _per_channel(cx, x.dim()) * to_f32(x)
+              + _per_channel(d, x.dim())).to(x.dtype)
+        return dx, dscale, dbias, None
+
+
+def bn_train(x, scale, bias, out_dtype):
+    """``(y, batch mean, biased batch var)`` of train-mode BatchNorm over
+    dim 1 of ``x``; see ``_BNTrain``."""
+    return _BNTrain.apply(x, scale, bias, out_dtype)
 
 
 class BatchNorm(nn.Module):
-    """Per-channel BatchNorm over dim 1 of an NCHW (or channels_last) tensor."""
+    """Per-channel BatchNorm over dim 1 of an NCHW (channels_last) tensor."""
 
     def __init__(self, features: int, zero_scale: bool = False,
                  dtype: torch.dtype = torch.bfloat16):
@@ -36,10 +106,16 @@ class BatchNorm(nn.Module):
         return torch.rsqrt(self.var + EPS) * self.scale, self.bias
 
     def forward(self, x):
+        if x.dim() < 2 or x.shape[1] != self.scale.numel():
+            raise ValueError(f"BatchNorm({self.scale.numel()}) got input "
+                             f"{tuple(x.shape)}")
         if self.training:
-            raise NotImplementedError(
-                "train-mode BatchNorm is not ported yet; call model.eval()")
+            y, mean, var = bn_train(x, self.scale, self.bias, self.dtype)
+            with torch.no_grad():
+                self.mean.copy_(MOMENTUM * self.mean + (1.0 - MOMENTUM) * mean)
+                self.var.copy_(MOMENTUM * self.var + (1.0 - MOMENTUM) * var)
+            return y
         mul, bias = self.folded()
-        shape = (1, -1) + (1,) * (x.dim() - 2)
-        y = (x.float() - self.mean.view(shape)) * mul.view(shape) + bias.view(shape)
+        y = ((x.float() - _per_channel(self.mean, x.dim())) * _per_channel(mul, x.dim())
+             + _per_channel(bias, x.dim()))
         return y.to(self.dtype)
