@@ -12,7 +12,11 @@
    function (where there is one) and the roofline bound:
    - ``conv_bn_relu`` at the serving shapes (B=32: 256x256x32->32 and
      512x512x16->16, bf16 and f32, with and without the BN affine, with
-     moments) and one ragged shape;
+     moments, two launches bit-identical) and at the edges of the bf16
+     tensor-core tiling (Cin 3 and 24, Cout 8 and 20, H and W off the tile
+     grid, B=1 at both serving shapes); kernel, plain version and library
+     call are timed as 20 launches between two CUDA events, so the host's
+     launch overhead is not counted (the single-launch time stands beside);
    - ``channel_sums`` / ``channel_dual_sums`` at every BatchNorm input of
      the train step (B=32; among them 512x512x16, 256x256x32, 16x16x512),
      bf16 and f32, and one ragged shape;
@@ -68,6 +72,9 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12,       # dense bf16 tensor cores
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 SLICE_SHAPES = [(32, 256, 256, 32, 32), (32, 512, 512, 16, 16)]
 RAGGED_SHAPE = (2, 18, 50, 24, 20)
+# bf16 tiles are 8x32 output pixels, K = Cin padded to 16 or 32, N = Cout to 8s
+EDGE_SHAPES = [(3, 7, 9, 3, 16), (2, 33, 100, 16, 16), (1, 9, 70, 32, 8),
+               (1, 256, 256, 32, 32), (1, 512, 512, 16, 16)]
 SEED = 0
 PORT = "uda_aerial_semantic_segmentation_research_tpu_torch"
 JAX_OPS = "uda_aerial_semantic_segmentation_research_tpu/ops"
@@ -115,6 +122,26 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, inner: int = 20, reps: int = 10, warmup: int = 3) -> float:
+    """Median CUDA-event time per call of ``fn`` over ``reps`` runs of
+    ``inner`` calls back to back: the device's time, not the host's launch
+    overhead (as long as the host enqueues faster than the device runs)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
 def bound(b, h, w, ci, co, dtype, affine):
     """Least time (ms) for the function: each input read once, the output
     written once, vs its multiply-adds at the peak rate of ``dtype``."""
@@ -136,13 +163,18 @@ def kernel_inputs(gen, b, h, w, ci, co, dtype):
 
 
 def check_kernel(conv_bn_relu, reference, gen, shape, dtype, affine, timed):
-    """Kernel vs plain version on one case; returns a result dict."""
+    """Kernel vs plain version on one case (y within one bf16 ulp or 1e-4 in
+    f32, moments within 1e-3 * sum|y|, two launches bit-identical); returns a
+    result dict, with times when ``timed``."""
     b, h, w, ci, co = shape
     x, k3, scale, shift = kernel_inputs(gen, *shape, dtype)
     sc, sh = (scale, shift) if affine else (None, None)
     y, mom = conv_bn_relu(x, k3, sc, sh, moments=True)
     y_plain = conv_bn_relu(x, k3, sc, sh)
+    y_again, mom_again = conv_bn_relu(x, k3, sc, sh, moments=True)
     torch.cuda.synchronize()
+    if not (torch.equal(y, y_again) and torch.equal(mom, mom_again)):
+        raise AssertionError(f"two launches differ at {shape} {dtype}")
     y_ref, mom_ref = reference(x, k3, sc, sh, moments=True)
     tol = TOL[dtype]
     torch.testing.assert_close(y.float(), y_ref.float(), atol=tol, rtol=tol)
@@ -152,6 +184,8 @@ def check_kernel(conv_bn_relu, reference, gen, shape, dtype, affine, timed):
     if not torch.all((mom - mom_ref).abs() <= mom_bound):
         raise AssertionError(f"moments off by {(mom - mom_ref).abs().max().item()}")
     res = dict(shape=list(shape), dtype=str(dtype).split(".")[-1], affine=affine,
+               tolerance=f"{tol} (atol and rtol); moments 1e-3 * sum|y|; two launches "
+                         "bit-identical",
                max_abs_err=(y.float() - y_ref.float()).abs().max().item(),
                moments_max_abs_err=(mom - mom_ref).abs().max().item())
     if timed:
@@ -159,10 +193,13 @@ def check_kernel(conv_bn_relu, reference, gen, shape, dtype, affine, timed):
         act = act.permute(0, 3, 1, 2)                     # channels_last NCHW view
         w_oihw = k3.to(dtype).permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
-        res["kernel_ms"] = time_ms(lambda: conv_bn_relu(x, k3, sc, sh))
-        res["plain_ms"] = time_ms(lambda: reference(x, k3, sc, sh))
-        res["library_ms"] = time_ms(lambda: F.conv2d(act, w_oihw, padding=1))
+        res["kernel_ms"] = device_ms(lambda: conv_bn_relu(x, k3, sc, sh))
+        res["plain_ms"] = device_ms(lambda: reference(x, k3, sc, sh))
+        res["library_ms"] = device_ms(lambda: F.conv2d(act, w_oihw, padding=1))
         res["bound_ms"], res["bound_by"] = bound(b, h, w, ci, co, dtype, affine)
+        res["share_of_bound"] = res["bound_ms"] / res["kernel_ms"]
+        res["kernel_single_launch_ms"] = time_ms(lambda: conv_bn_relu(x, k3, sc, sh))
+        res["library_single_launch_ms"] = time_ms(lambda: F.conv2d(act, w_oihw, padding=1))
     print("kernel check", json.dumps(res), flush=True)
     return res
 
@@ -500,9 +537,10 @@ def main(argv=None) -> int:
             for affine in (True, False):
                 results.append(check_kernel(conv_bn_relu, reference, gen, shape,
                                             dtype, affine, timed=True))
-    for dtype in (torch.bfloat16, torch.float32):
-        results.append(check_kernel(conv_bn_relu, reference, gen, RAGGED_SHAPE,
-                                    dtype, True, timed=False))
+    for shape in [RAGGED_SHAPE] + EDGE_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            results.append(check_kernel(conv_bn_relu, reference, gen, shape,
+                                        dtype, True, timed=False))
     path_cases = [r for r in results
                   if r["dtype"] == "bfloat16" and r["affine"] and "kernel_ms" in r]
     assert len(path_cases) == len(SLICE_SHAPES)
@@ -727,6 +765,13 @@ def main(argv=None) -> int:
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in path_cases)
         else "operations",
         "library_ms": sum(r["library_ms"] for r in path_cases),
+        "share_of_bound": (sum(r["bound_ms"] for r in path_cases)
+                           / sum(r["kernel_ms"] for r in path_cases)),
+        "per_shape": [{k: r[k] for k in ("shape", "kernel_ms", "plain_ms", "library_ms",
+                                         "bound_ms", "share_of_bound",
+                                         "kernel_single_launch_ms",
+                                         "library_single_launch_ms")}
+                      for r in path_cases],
     }, {
         # per train step: one forward and one backward launch per BatchNorm
         "name": "channel_sums", "route": "cuda", "source": f"{src}/channel_sums.cu",

@@ -139,28 +139,88 @@ def test_build_without_nvcc_raises(monkeypatch):
         _build._nvcc()
 
 
+def test_library_hash_covers_headers_and_flags(monkeypatch, tmp_path):
+    """An edited header or nvcc flag gives another library file name, so a
+    stale build is never loaded."""
+    from uda_aerial_semantic_segmentation_research_tpu_torch.ops import _build
+
+    src = tmp_path / "k.cu"
+    src.write_text("// kernel")
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+    first = _build._digest(src)
+    assert _build._digest(src) == first
+    (tmp_path / "common.cuh").write_text("// header")
+    with_header = _build._digest(src)
+    (tmp_path / "common.cuh").write_text("// header, edited")
+    edited = _build._digest(src)
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ["-lineinfo"])
+    flagged = _build._digest(src)
+    assert len({first, with_header, edited, flagged}) == 4
+
+
+# (B, H, W, Cin, Cout) on the card.  The bfloat16 kernel tiles 8 x 32 output
+# pixels and pads K = Cin to 16 or 32 and N = Cout to a multiple of 8: Cin 3
+# and 24 and Cout 20 are padded; W = 50, 9, 100 and 70 are not multiples of 32;
+# H = 7, 33, 18 and 9 are no multiples of 8 (7, 33 and 9 odd); B=1 at both serving
+# shapes.
+GPU_CASES = [(2, 16, 16, 8, 8), (2, 18, 50, 24, 20), (1, 32, 64, 32, 32),
+             (3, 7, 9, 3, 16), (2, 33, 100, 16, 16), (1, 9, 70, 32, 8),
+             (1, 256, 256, 32, 32), (1, 512, 512, 16, 16)]
+
+
+def _gpu_inputs(case, dtype, affine):
+    b, h, w, ci, co = case
+    x, k3, scale, shift = _inputs(b, h, ci, co, w=w)
+    # zero and negative BN scale; a zero scale with a positive shift makes
+    # the activation relu(shift) > 0 inside the image, which must not leak
+    # into the pad ring
+    scale[0], scale[-1], shift[0] = 0.0, -0.5, 0.3
+    xt, kt, st, sh = (t.cuda() for t in _t(x, k3, scale, shift))
+    return (xt.to(dtype), kt) + ((st, sh) if affine else (None, None))
+
+
 @pytest.mark.gpu
 def test_kernel_matches_reference_on_gpu():
-    """The CUDA kernel vs its plain version on the card (f32 with TF32
+    """The CUDA kernels vs their plain version on the card (f32 with TF32
     off: 1e-4; bf16: 1e-2, one bf16 ulp; moments: 1e-3 * sum|y|)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cases = [(2, 16, 16, 8, 8), (2, 18, 50, 24, 20), (1, 32, 64, 32, 32), (3, 7, 9, 3, 16)]
-    for b, h, w, ci, co in cases:
-        x, k3, scale, shift = _inputs(b, h, ci, co, w=w)
-        scale[0], scale[-1] = 0.0, -0.5
+    for case in GPU_CASES:
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
             for affine in (True, False):
-                xt, kt, st, sh = (t.cuda() for t in _t(x, k3, scale, shift))
-                xt = xt.to(dtype)
-                st, sh = (st, sh) if affine else (None, None)
+                xt, kt, st, sh = _gpu_inputs(case, dtype, affine)
                 before = conv_bn_relu.launches
                 y, m = conv_bn_relu(xt, kt, st, sh, moments=True)
                 torch.cuda.synchronize()
                 assert conv_bn_relu.launches == before + 1
                 yr, mr = conv_bn_relu_reference(xt, kt, st, sh, moments=True)
-                torch.testing.assert_close(y.float(), yr.float(), atol=tol, rtol=tol)
+                torch.testing.assert_close(y.float(), yr.float(), atol=tol, rtol=tol,
+                                           msg=lambda m: f"{case} {dtype} {affine}: {m}")
                 bound = 1e-3 * yr.float().abs().sum((0, 1, 2))
-                assert torch.all((m - mr).abs() <= bound + 1e-6)
+                assert torch.all((m - mr).abs() <= bound + 1e-6), (case, dtype, affine)
+    # x 2 bytes off a 16-byte boundary: no TMA, the per-element halo load
+    xt, kt, st, sh = _gpu_inputs((2, 20, 40, 32, 32), torch.bfloat16, True)
+    xo = torch.empty(xt.numel() + 1, dtype=xt.dtype, device="cuda")[1:].view(xt.shape)
+    xo.copy_(xt)
+    assert xo.is_contiguous() and xo.data_ptr() % 16 != 0
+    y, m = conv_bn_relu(xo, kt, st, sh, moments=True)
+    yr, mr = conv_bn_relu_reference(xt, kt, st, sh, moments=True)
+    torch.testing.assert_close(y.float(), yr.float(), atol=1e-2, rtol=1e-2)
+    assert torch.all((m - mr).abs() <= 1e-3 * yr.float().abs().sum((0, 1, 2)) + 1e-6)
+
+
+@pytest.mark.gpu
+def test_kernel_is_deterministic_on_gpu():
+    """Two launches with moments give the same bits: per-block partials
+    folded in a fixed order, no float atomics."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for case in [(2, 18, 50, 24, 20), (4, 256, 256, 32, 32), (2, 512, 512, 16, 16)]:
+        for dtype in (torch.float32, torch.bfloat16):
+            xt, kt, st, sh = _gpu_inputs(case, dtype, True)
+            y1, m1 = conv_bn_relu(xt, kt, st, sh, moments=True)
+            y2, m2 = conv_bn_relu(xt, kt, st, sh, moments=True)
+            torch.cuda.synchronize()
+            assert torch.equal(y1, y2) and torch.equal(m1, m2), (case, dtype)

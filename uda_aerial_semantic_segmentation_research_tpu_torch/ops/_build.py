@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface.  On first use it is
 compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library
 under ``build/torch_kernels/`` at the root of the checkout and loaded
 with ``ctypes``; ``build_libraries`` compiles several sources at once,
-one ``nvcc`` process each.  The library's file name carries a hash of its source,
-so an edited source is rebuilt and a stale library is never loaded.
+one ``nvcc`` process each.  The library's file name carries a hash of its
+source, of every header under ``csrc/`` and of the ``nvcc`` flags, so an
+edited source, header or flag is rebuilt and a stale library is never loaded.
 Nothing is built at import time: the CPU tests import every module on
 a host without ``nvcc``.
 """
@@ -41,13 +42,23 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
+def _digest(src: Path) -> str:
+    """Hash of what a library is built from: its source, the headers it may
+    include and the compiler flags."""
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update("\0".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def build_libraries(names) -> dict[str, Path]:
     """Compile every ``csrc/<name>.cu`` of ``names`` whose hashed library is
     missing, all ``nvcc`` processes started together, and return the paths."""
     outs, running = {}, {}
     for name in names:
         src = CSRC_DIR / f"{name}.cu"
-        digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+        digest = _digest(src)
         out = outs[name] = BUILD_DIR / f"lib{name}-{digest}.so"
         if out.exists():
             build_seconds.setdefault(name, 0.0)

@@ -1,11 +1,13 @@
 """Fused [BN-affine + ReLU ->] conv3x3-SAME [-> output moments].
 
 Counterpart of the JAX package's ``ops/pallas_conv.py::packed_conv_bn_relu``
-(the Pallas kernel ``_conv_kernel``).  The kernel is hand-written CUDA
-(``csrc/conv_bn_relu.cu``); the TPU version's 2x2 space-to-depth packing,
-``-shift/scale`` border ring and one-row halo BlockSpec were Mosaic
-workarounds and are not carried over -- the CUDA kernel pads the
-post-ReLU activation with exact zeros.
+(the Pallas kernel ``_conv_kernel``).  The kernels are hand-written CUDA
+(``csrc/conv_bn_relu.cu``): bfloat16 runs a tensor-core implicit GEMM
+(persistent blocks, TMA halo ring, ldmatrix + mma.sync), float32 a
+CUDA-core direct convolution that stays exact to 1e-4.  The TPU version's
+2x2 space-to-depth packing, ``-shift/scale`` border ring and one-row halo
+BlockSpec were Mosaic workarounds and are not carried over -- the CUDA
+kernels pad the post-ReLU activation with exact zeros.
 
 ``conv_bn_relu`` launches the kernel for a CUDA tensor and raises on what
 the kernel does not take; for a CPU tensor it computes the plain PyTorch
@@ -23,7 +25,8 @@ import torch.nn.functional as F
 
 MAX_CHANNELS = 32
 _GRID_LIMIT = 65535
-_TILE_H = 8  # output rows per thread block (TH in csrc/conv_bn_relu.cu)
+_F32_TILE_H = 8  # output rows per float32 thread block (F_TH in csrc/conv_bn_relu.cu)
+_BF16_TILE = (8, 32)  # output rows x columns per bfloat16 tile (TH, TW there)
 
 
 def conv_bn_relu_reference(x, k3, scale=None, shift=None, *, moments=False):
@@ -57,10 +60,14 @@ def _library():
 
     lib = load_library("conv_bn_relu")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.conv_bn_relu_launch.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
-    lib.conv_bn_relu_launch.restype = i32
-    lib.conv_bn_relu_num_blocks.argtypes = [i32] * 3
-    lib.conv_bn_relu_num_blocks.restype = ctypes.c_longlong
+    lib.conv_bn_relu_f32_launch.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+    lib.conv_bn_relu_f32_launch.restype = i32
+    lib.conv_bn_relu_bf16_launch.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
+    lib.conv_bn_relu_bf16_launch.restype = i32
+    lib.conv_bn_relu_f32_num_blocks.argtypes = [i32] * 3
+    lib.conv_bn_relu_f32_num_blocks.restype = ctypes.c_longlong
+    lib.conv_bn_relu_bf16_num_blocks.argtypes = [i32] * 5
+    lib.conv_bn_relu_bf16_num_blocks.restype = ctypes.c_longlong
     lib.conv_bn_relu_fold_moments.argtypes = [ptr, ptr, ctypes.c_longlong, i32, ptr]
     lib.conv_bn_relu_fold_moments.restype = i32
     return lib
@@ -101,31 +108,42 @@ def conv_bn_relu(x, k3, scale=None, shift=None, *, moments=False):
     if not (1 <= cin <= MAX_CHANNELS and 1 <= cout <= MAX_CHANNELS):
         raise ValueError(f"conv_bn_relu takes 1..{MAX_CHANNELS} channels, "
                          f"got Cin={cin} Cout={cout}")
-    if b > _GRID_LIMIT or -(-h // _TILE_H) > _GRID_LIMIT or b * h * w == 0:
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:  # tiles are counted in int32
+        th, tw = _BF16_TILE
+        fits = b * -(-h // th) * -(-w // tw) < 2 ** 31
+    else:     # one block per (image, tile row, tile column)
+        fits = b <= _GRID_LIMIT and -(-h // _F32_TILE_H) <= _GRID_LIMIT
+    if b * h * w == 0 or not fits:
         raise ValueError(f"conv_bn_relu cannot launch on shape {tuple(x.shape)}")
     for t in (k3, scale, shift):
         if t is not None and t.device != x.device:
             raise ValueError("all conv_bn_relu arguments must be on one device")
 
     lib = _library()
-    # weights rounded to the working dtype (as the Pallas kernel's km), kept f32
-    wf = k3.to(x.dtype).float().contiguous()
+    # weights rounded to the working dtype (as the Pallas kernel's km), kept
+    # f32; the bf16 kernel rounds them itself
+    wf = (k3.to(torch.float32, memory_format=torch.contiguous_format) if bf16
+          else k3.to(x.dtype).float().contiguous())
     sc = sh = None
     if scale is not None:
         sc = scale.float().contiguous()
         sh = shift.float().contiguous()
     y = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
-    n_blk = lib.conv_bn_relu_num_blocks(b, h, w)
-    partials = (torch.empty((n_blk, 2, cout), dtype=torch.float32, device=x.device)
-                if moments else None)
     with torch.cuda.device(x.device):
+        n_blk = (_bf16_blocks(lib, x.device.index, b, h, w, cin, cout) if bf16
+                 else lib.conv_bn_relu_f32_num_blocks(b, h, w))
+        partials = (torch.empty((n_blk, 2, cout), dtype=torch.float32, device=x.device)
+                    if moments else None)
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.conv_bn_relu_launch(
-            x.data_ptr(), wf.data_ptr(),
-            None if sc is None else sc.data_ptr(),
-            None if sh is None else sh.data_ptr(),
-            y.data_ptr(), None if partials is None else partials.data_ptr(),
-            int(x.dtype == torch.bfloat16), b, h, w, cin, cout, stream)
+        ptrs = (x.data_ptr(), wf.data_ptr(),
+                None if sc is None else sc.data_ptr(),
+                None if sh is None else sh.data_ptr(),
+                y.data_ptr(), None if partials is None else partials.data_ptr())
+        if bf16:
+            err = lib.conv_bn_relu_bf16_launch(*ptrs, b, h, w, cin, cout, n_blk, stream)
+        else:
+            err = lib.conv_bn_relu_f32_launch(*ptrs, b, h, w, cin, cout, stream)
         if err:
             raise RuntimeError(f"conv_bn_relu kernel launch failed: CUDA error {err}")
         conv_bn_relu.launches += 1
@@ -137,6 +155,16 @@ def conv_bn_relu(x, k3, scale=None, shift=None, *, moments=False):
         if err:
             raise RuntimeError(f"conv_bn_relu moments fold failed: CUDA error {err}")
     return y, mom
+
+
+@functools.lru_cache(maxsize=64)
+def _bf16_blocks(lib, device_index, b, h, w, cin, cout):
+    """Persistent blocks of a bfloat16 launch on this device (the rows of its
+    moments scratch); the launch uses exactly this grid."""
+    n = lib.conv_bn_relu_bf16_num_blocks(b, h, w, cin, cout)
+    if n <= 0:
+        raise RuntimeError(f"conv_bn_relu cannot size its grid: CUDA error {-n}")
+    return n
 
 
 conv_bn_relu.launches = 0
