@@ -2,6 +2,9 @@
 
     python3 chip_smoke.py                  # everything below, on one card
     python3 chip_smoke.py --probe-batch N  # only: does a train step fit at batch N?
+    python3 chip_smoke.py --compare-sums-source OLD.cu
+        # only: the sums kernels against those built from an older
+        # channel_sums.cu, at the train step's 7 BatchNorm shapes, in turns
 
 1. prints the card (``nvidia-smi`` name and power limit);
 2. builds the port's four CUDA libraries from ``csrc/`` with nvcc, all
@@ -18,8 +21,13 @@
      call are timed as 20 launches between two CUDA events, so the host's
      launch overhead is not counted (the single-launch time stands beside);
    - ``channel_sums`` / ``channel_dual_sums`` at every BatchNorm input of
-     the train step (B=32; among them 512x512x16, 256x256x32, 16x16x512),
-     bf16 and f32, and one ragged shape;
+     the train step (B=32, 7 shapes from 16x16x512 to 512x512x16), bf16,
+     three of them in f32, timed as 20 launches per event pair over rotating
+     input copies larger than twice the L2 and as the profiler's kernel
+     duration; untimed at the edges (C=3, 16, 24, 512, M=1, ragged rows,
+     mixed bf16/f32 duals, an unaligned view); one device kernel per call,
+     1,000 calls in a row and two streams at once give the same bits; the
+     wrapper's host time per call;
    - ``dihedral_normalize`` at (32, 512, 512, 3) uint8 with masks, all
      eight group elements present, bit-exact;
    - ``fused_cross_entropy`` at (32, 512, 512, 23) f32 and bf16, forward
@@ -37,7 +45,9 @@
    ``hist.sum()``, and the exact launch counts per step (one
    ``channel_sums`` and one ``channel_dual_sums`` per BatchNorm, one
    ``dihedral_normalize``, two ``fused_cross_entropy``); times the step,
-   reads the peak memory and breaks the device time down by kind;
+   reads the peak memory and breaks the device time down by kind, with
+   launches per kind; counts the incoming BatchNorm gradients that
+   ``bn_train`` has to copy before the dual sums;
 6. runs ``make_eval_step`` on the trained model (2 ``conv_bn_relu``
    launches, finite loss);
 7. holds one float32 train step on the card (kernels) against the same
@@ -56,7 +66,9 @@ import argparse
 import collections
 import copy
 import dataclasses
+import itertools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -79,12 +91,21 @@ SEED = 0
 PORT = "uda_aerial_semantic_segmentation_research_tpu_torch"
 JAX_OPS = "uda_aerial_semantic_segmentation_research_tpu/ops"
 TRAIN_BATCH, TRAIN_STEPS, TILE, CLASSES = 32, 5, 512, 23
-SUMS_RAGGED = (3, 7, 5, 24)
+L2_BYTES = 50 * 2 ** 20                         # H100 L2
+# BatchNorm inputs of the B=32 train step (NHWC shape: BatchNorms), checked
+# against the step's own census in phase 5
+BN_SHAPES = {(32, 16, 16, 512): 7, (32, 32, 32, 256): 15, (32, 64, 64, 128): 11,
+             (32, 128, 128, 64): 8, (32, 256, 256, 32): 2, (32, 256, 256, 64): 1,
+             (32, 512, 512, 16): 2}
+# untimed sums checks: the generic path (C=24, C=3, ragged, odd row counts),
+# M=1 on both paths, C=16 / 512 off the step's shapes, many rows
+SUMS_EDGE_SHAPES = [(3, 7, 5, 24), (1, 16), (1, 512), (1, 24), (2, 1000, 24), (4, 9, 3),
+                    (5, 3, 16), (70000, 32)]
 # device functions grouped by name (first match wins)
 PROFILE_CATEGORIES = [
     ("conv_bn_relu kernel", ("conv_bn_relu", "fold_moments")),
     ("fused_cross_entropy kernels", ("ce_fwd_kernel", "ce_bwd_kernel", "ce_fold_kernel")),
-    ("channel_sums kernels", ("sums_vec_kernel", "sums_generic_kernel", "::fold_kernel")),
+    ("channel_sums kernels", ("channel_sums_bulk_kernel", "channel_sums_generic_kernel")),
     ("dihedral_normalize kernel", ("dihedral_kernel",)),
     ("optimizer (foreach Adam, clip)", ("multi_tensor_apply",)),
     ("argmax + confusion matrix", ("ArgMaxOps", "scatter_gather")),
@@ -211,7 +232,6 @@ def profile_forward(fn, reps: int = 3, top: int = 8):
     the device busy share (union of device intervals over the host wall
     time of the window), and the ``top`` device functions by time.
     """
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -222,12 +242,13 @@ def profile_forward(fn, reps: int = 3, top: int = 8):
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    spans, by_name = [], {}
+    spans, by_name, count = [], {}, collections.Counter()
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if on_device(e):
             start, end = e.time_range.start, e.time_range.end
             spans.append((start, end))
             by_name[e.name] = by_name.get(e.name, 0.0) + (end - start)
+            count[e.name] += 1
     if not spans:
         return {"device_ms_per_call": "not measured"}
     busy_us, cur_start, cur_end = 0.0, None, None
@@ -241,14 +262,21 @@ def profile_forward(fn, reps: int = 3, top: int = 8):
     busy_us += cur_end - cur_start
     total_us = sum(by_name.values())
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
-    by_category = {}
+    by_category, launches = {}, collections.Counter()
     for name, us in by_name.items():
         cat = next((c for c, keys in PROFILE_CATEGORIES
                     if any(k in name for k in keys)), "other")
         by_category[cat] = by_category.get(cat, 0.0) + us / 1e3 / reps
+        launches[cat] += count[name]
+    other = sorted(((us, name) for name, us in by_name.items()
+                    if not any(k in name for _, keys in PROFILE_CATEGORIES for k in keys)),
+                   reverse=True)[:4]
     return {"device_ms_per_call": total_us / 1e3 / reps,
+            "other_top": [{"ms": us / 1e3 / reps, "launches": count[name] / reps,
+                           "name": name[:80]} for us, name in other],
             "busy_share": busy_us / wall_us,
             "by_category_ms": dict(sorted(by_category.items(), key=lambda kv: -kv[1])),
+            "by_category_launches": {c: n / reps for c, n in launches.most_common()},
             "top_kernels": [{"ms": us / 1e3 / reps, "share": us / total_us,
                              "name": name[:100]} for name, us in ranked]}
 
@@ -282,42 +310,270 @@ def dtype_name(dtype) -> str:
     return str(dtype).split(".")[-1]
 
 
-def check_sums(ops, gen, shape, dtype, timed):
-    """channel_sums / channel_dual_sums vs their plain versions on one
-    (..., C) shape.  Tolerance: 1e-5 of sum|terms| per channel (float32
-    sums taken in another order)."""
+def rotation(make, call_bytes):
+    """Copies of one call's inputs (the first from ``make`` as well) that
+    together exceed twice the L2, so a run through them reads from HBM."""
+    return [make() for _ in range(max(1, -(-2 * L2_BYTES // call_bytes)))]
+
+
+def cycling(fn, inputs):
+    """``fn`` on the next tuple of ``inputs`` at each call."""
+    it = itertools.cycle(inputs)
+    return lambda: fn(*next(it))
+
+
+def sums_inputs(gen, shape, dtype, dy_dtype=None):
     x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
-    dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    dy = torch.randn(shape, generator=gen, device="cuda").to(dy_dtype or dtype)
+    return dy, x
+
+
+def check_sums(ops, gen, shape, dtype, timed, dy_dtype=None, parent=None):
+    """channel_sums / channel_dual_sums vs their plain versions on one
+    (..., C) shape; ``dy_dtype`` other than ``dtype`` for the mixed dual
+    form.  Tolerance: 1e-5 of sum|terms| per channel (float32 sums taken in
+    another order); two launches bit-identical.  Timed: 20 launches per event
+    pair over rotating copies of the inputs (> 2x the L2: cold, as in the
+    step), the single-launch time beside; ``parent`` (the parent commit's
+    kernels) timed the same way, in turns with the new ones."""
+    dy, x = sums_inputs(gen, shape, dtype, dy_dtype)
     dims = tuple(range(len(shape) - 1))
     got, dual = ops.channel_sums(x), ops.channel_dual_sums(dy, x)
+    again, dual_again = ops.channel_sums(x), ops.channel_dual_sums(dy, x)
     torch.cuda.synchronize()
+    if not (torch.equal(got, again) and torch.equal(dual, dual_again)):
+        raise AssertionError(f"two launches differ at {shape} {dtype}")
     ref, dual_ref = ops.channel_sums_reference(x), ops.channel_dual_sums_reference(dy, x)
     x32, dy32 = x.float(), dy.float()
     terms = torch.stack([x32.abs().sum(dims), (x32 * x32).sum(dims)])
     dual_terms = torch.stack([dy32.abs().sum(dims), (dy32 * x32).abs().sum(dims)])
-    rel = max(((got - ref).abs() / (terms + 1e-6)).max().item(),
-              ((dual - dual_ref).abs() / (dual_terms + 1e-6)).max().item())
-    if not rel <= 1e-5:
-        raise AssertionError(f"channel sums off by {rel} of sum|terms| at {shape} {dtype}")
+    del x32, dy32
+    rel = lambda a, r, t: ((a - r).abs() / (t + 1e-6)).max().item()
+    err = max(rel(got, ref, terms), rel(dual, dual_ref, dual_terms))
+    if not err <= 1e-5:
+        raise AssertionError(f"channel sums off by {err} of sum|terms| at {shape} {dtype}")
     res = dict(kernel="channel_sums", shape=list(shape), dtype=dtype_name(dtype),
-               tolerance="1e-5 * sum|terms|", max_rel_err=rel,
+               dy_dtype=dtype_name(dy.dtype),
+               tolerance="1e-5 * sum|terms|; two launches bit-identical", max_rel_err=err,
                max_abs_err=max((got - ref).abs().max().item(),
                                (dual - dual_ref).abs().max().item()))
-    del x32, dy32
+    if parent is not None:
+        p_got, p_dual = parent(x), parent(dy, x)
+        res["parent_max_rel_err"] = max(rel(p_got, ref, terms), rel(p_dual, dual_ref, dual_terms))
     if timed:
-        n, c, elt = x.numel(), shape[-1], x.element_size()
-        res["sums_ms"] = time_ms(lambda: ops.channel_sums(x))
-        res["dual_ms"] = time_ms(lambda: ops.channel_dual_sums(dy, x))
-        res["sums_plain_ms"] = time_ms(lambda: ops.channel_sums_reference(x))
-        res["dual_plain_ms"] = time_ms(lambda: ops.channel_dual_sums_reference(dy, x))
-        res["sums_library_ms"] = time_ms(lambda: torch.var_mean(x, dim=dims))
-        res["dual_library_ms"] = time_ms(
-            lambda: (dy.sum(dims, dtype=torch.float32),
-                     (dy * x).sum(dims, dtype=torch.float32)))
-        res["sums_bound_ms"], res["bound_by"] = roofline(n * elt + 8 * c, 4 * n)
-        res["dual_bound_ms"], _ = roofline(2 * n * elt + 8 * c, 4 * n)
+        n, c = x.numel(), shape[-1]
+        sums_in = [(x,)] + rotation(lambda: (x.clone(),), n * x.element_size())[1:]
+        dual_in = [(dy, x)] + rotation(lambda: (dy.clone(), x.clone()),
+                                       n * (x.element_size() + dy.element_size()))[1:]
+        if parent is not None:       # parent, new, new, parent
+            for key, new_fn, inputs in (("sums", ops.channel_sums, sums_in),
+                                        ("dual", ops.channel_dual_sums, dual_in)):
+                t = [device_ms(cycling(f, inputs))
+                     for f in (parent, new_fn, new_fn, parent)]
+                res[f"{key}_parent_ms"] = (t[0] + t[3]) / 2
+                res[f"{key}_ms"] = (t[1] + t[2]) / 2
+                res[f"{key}_turns_ms"] = t
+        else:
+            res["sums_ms"] = device_ms(cycling(ops.channel_sums, sums_in))
+            res["dual_ms"] = device_ms(cycling(ops.channel_dual_sums, dual_in))
+            res["sums_plain_ms"] = device_ms(cycling(ops.channel_sums_reference, sums_in))
+            res["dual_plain_ms"] = device_ms(cycling(ops.channel_dual_sums_reference, dual_in))
+            res["sums_library_ms"] = device_ms(
+                cycling(lambda t: torch.var_mean(t, dim=dims), sums_in))
+            res["dual_library_ms"] = device_ms(cycling(
+                lambda d, t: (d.sum(dims, dtype=torch.float32),
+                              (d * t).sum(dims, dtype=torch.float32)), dual_in))
+            res["sums_single_launch_ms"] = time_ms(lambda: ops.channel_sums(x))
+            res["dual_single_launch_ms"] = time_ms(lambda: ops.channel_dual_sums(dy, x))
+        res["sums_kernel_ms"] = kernel_ms(cycling(ops.channel_sums, sums_in))
+        res["dual_kernel_ms"] = kernel_ms(cycling(ops.channel_dual_sums, dual_in))
+        if parent is not None:
+            res["sums_parent_kernel_ms"] = kernel_ms(cycling(parent, sums_in))
+            res["dual_parent_kernel_ms"] = kernel_ms(cycling(parent, dual_in))
+        del sums_in, dual_in
+        res["sums_bound_ms"], res["bound_by"] = roofline(n * x.element_size() + 8 * c, 4 * n)
+        res["dual_bound_ms"], _ = roofline(n * (x.element_size() + dy.element_size()) + 8 * c,
+                                           4 * n)
+        res["sums_share_of_bound"] = res["sums_bound_ms"] / res["sums_ms"]
+        res["dual_share_of_bound"] = res["dual_bound_ms"] / res["dual_ms"]
     print("kernel check", json.dumps(res), flush=True)
     return res
+
+
+def on_device(event) -> bool:
+    """A kernel, copy or fill on the device; not a user annotation that the
+    profiler mirrors onto the device's timeline (``Optimizer.step#...``)."""
+    from torch.autograd import DeviceType
+
+    return (event.device_type == DeviceType.CUDA
+            and not getattr(event, "is_user_annotation", False))
+
+
+def device_events(fn, calls: int = 20, windows: int = 4):
+    """(name, µs) of every device event (kernels, copies, fills) of ``calls``
+    calls of ``fn`` under torch.profiler, after one call outside the window.
+    A spin kernel on each side of the calls is left out.  The profiler can
+    drop events (a whole window's, at times) but never adds any: a window
+    is taken again, up to ``windows`` times, until its count is a whole
+    number of events per call, and the fullest window is returned."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    best = []
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(20000)
+            for _ in range(calls):
+                fn()
+            torch.cuda._sleep(20000)
+            torch.cuda.synchronize()
+        events = [(e.name, e.time_range.end - e.time_range.start) for e in prof.events()
+                  if on_device(e) and "spin_kernel" not in e.name]
+        if len(events) > len(best):
+            best = events
+        if best and len(best) % calls == 0:
+            break
+    return best
+
+
+def host_us_per_call(fn, calls: int = 200) -> float:
+    """Host time (µs) to enqueue one call of ``fn``: the wrapper's checks,
+    plan, allocation and launch, with the device far from saturated."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+def kernel_ms(fn, calls: int = 20) -> float:
+    """Device time per call of ``fn`` from the profiler's kernel durations
+    (no host launch overhead, no gaps between launches): the mean duration
+    of each device function, summed over the functions of a call."""
+    by_name = collections.defaultdict(list)
+    for name, us in device_events(fn, calls):
+        by_name[name].append(us)
+    if not by_name:
+        raise AssertionError("the profiler saw no device event in any window")
+    return sum(statistics.fmean(v) for v in by_name.values()) / 1e3
+
+
+def device_kernels_per_call(fn, calls: int = 20) -> float:
+    """Device events per call of ``fn``; each must be a channel_sums kernel."""
+    names = [name for name, _ in device_events(fn, calls)]
+    if not all("channel_sums_" in name for name in names):
+        raise AssertionError(f"other device work in channel_sums calls: {set(names)}")
+    return len(names) / calls
+
+
+def check_sums_launches(ops, gen):
+    """One device kernel per call (profiler), 1,000 calls in a row give the
+    same bits (the ticket counter is re-armed), and two streams at once
+    (one counter each) agree with the plain versions."""
+    dy, x = sums_inputs(gen, (32, 32, 32, 256), torch.bfloat16)
+    _, odd = sums_inputs(gen, (3, 7, 5, 24), torch.float32)       # generic path
+    per_call = {name: device_kernels_per_call(fn) for name, fn in (
+        ("channel_sums", lambda: ops.channel_sums(x)),
+        ("channel_dual_sums", lambda: ops.channel_dual_sums(dy, x)),
+        ("channel_sums generic", lambda: ops.channel_sums(odd)))}
+    if any(v != 1 for v in per_call.values()):
+        raise AssertionError(f"device kernels per call: {per_call}")
+    host_us = {name: host_us_per_call(fn) for name, fn in (
+        ("channel_sums", lambda: ops.channel_sums(x)),
+        ("channel_dual_sums", lambda: ops.channel_dual_sums(dy, x)))}
+    first, first_dual = ops.channel_sums(x), ops.channel_dual_sums(dy, x)
+    runs = [(ops.channel_sums(x), ops.channel_dual_sums(dy, x)) for _ in range(500)]
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, first) and torch.equal(b, first_dual) for a, b in runs):
+        raise AssertionError("1,000 calls in a row do not give the same bits")
+    dy2, x2 = sums_inputs(gen, (32, 64, 64, 128), torch.bfloat16)
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    outs = [[], []]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    for _ in range(50):
+        with torch.cuda.stream(streams[0]):
+            outs[0].append(ops.channel_sums(x))
+        with torch.cuda.stream(streams[1]):
+            outs[1].append(ops.channel_dual_sums(dy2, x2))
+    torch.cuda.synchronize()
+    ref = ops.channel_sums_reference(x)
+    ref_dual = ops.channel_dual_sums_reference(dy2, x2)
+    for got, r in ((outs[0], ref), (outs[1], ref_dual)):
+        if not all(torch.equal(g, got[0]) for g in got):
+            raise AssertionError("two streams: calls on one stream differ")
+        torch.testing.assert_close(got[0], r, rtol=1e-5, atol=1e-2)
+    res = {"device_kernels_per_call": per_call, "host_us_per_call": host_us,
+           "calls_in_a_row": 1000,
+           "two_streams": "50 channel_sums + 50 channel_dual_sums, bit-identical per stream"}
+    print("kernel check", json.dumps({"kernel": "channel_sums launches", **res}), flush=True)
+    return res
+
+
+def parent_sums(source):
+    """The parent commit's channel_sums.cu (two launches a call, partials
+    of ``channel_sums_max_blocks()`` rows), built with the port's nvcc flags
+    and called through its own C interface: fn(x) or fn(dy, x)."""
+    import ctypes
+    import os
+
+    from uda_aerial_semantic_segmentation_research_tpu_torch.ops import _build
+
+    out = _build.BUILD_DIR / "parent" / "libchannel_sums_parent.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    include = _build.CSRC_DIR
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(include), "-o", str(out),
+                    os.fspath(source)], check=True, timeout=300)
+    lib = ctypes.CDLL(str(out))
+    lib.channel_sums_max_blocks.restype = ctypes.c_int
+    lib.channel_sums_launch.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    rows = lib.channel_sums_max_blocks()
+
+    def call(a, b=None):
+        c = a.shape[-1]
+        partials = torch.empty((rows, 2, c), dtype=torch.float32, device=a.device)
+        res = torch.empty((2, c), dtype=torch.float32, device=a.device)
+        err = lib.channel_sums_launch(
+            a.data_ptr(), None if b is None else b.data_ptr(), partials.data_ptr(),
+            res.data_ptr(), int(a.dtype == torch.bfloat16),
+            int(b is not None and b.dtype == torch.bfloat16), a.numel() // c, c,
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"parent channel_sums failed: CUDA error {err}")
+        return res
+
+    return call
+
+
+def compare_sums_with_parent(sums_ops, source, card):
+    """The new and the parent's sums kernels at the train step's 7 BatchNorm
+    shapes (bf16), same inputs, 20 launches per event pair on rotating cold
+    copies, in turns (parent, new, new, parent)."""
+    parent = parent_sums(source)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = [check_sums(sums_ops, gen, shape, torch.bfloat16, timed=True, parent=parent)
+            for shape in sorted(BN_SHAPES)]
+    step = lambda key: sum(r[key] * BN_SHAPES[tuple(r["shape"])] for r in rows)
+    bound = step("sums_bound_ms") + step("dual_bound_ms")
+    new_ms = step("sums_ms") + step("dual_ms")
+    old_ms = step("sums_parent_ms") + step("dual_parent_ms")
+    print(json.dumps({"sums_vs_parent": {
+        "per_step_ms": new_ms, "parent_per_step_ms": old_ms, "bound_ms": bound,
+        "share_of_bound": bound / new_ms, "parent_share_of_bound": bound / old_ms,
+        "kernel_per_step_ms": step("sums_kernel_ms") + step("dual_kernel_ms"),
+        "parent_kernel_per_step_ms": step("sums_parent_kernel_ms") + step("dual_parent_kernel_ms"),
+        "per_shape": [{k: r[k] for k in ("shape", "sums_ms", "sums_parent_ms", "dual_ms",
+                                         "dual_parent_ms", "sums_share_of_bound",
+                                         "dual_share_of_bound", "sums_turns_ms",
+                                         "dual_turns_ms", "sums_kernel_ms",
+                                         "sums_parent_kernel_ms", "dual_kernel_ms",
+                                         "dual_parent_kernel_ms")} for r in rows],
+        "card": card}}), flush=True)
 
 
 def check_dihedral(ops, host_rng):
@@ -473,6 +729,10 @@ def main(argv=None) -> int:
     parser.add_argument("--probe-batch", type=int, default=None,
                         help="only run train steps at this batch size and report "
                              "whether they fit in device memory")
+    parser.add_argument("--compare-sums-source", default=None, metavar="CU_FILE",
+                        help="only time the channel_sums kernels against the ones "
+                             "built from this (older) source, at the train step's "
+                             "BatchNorm shapes")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -527,6 +787,10 @@ def main(argv=None) -> int:
           + f"; all built and loaded in {time.perf_counter() - t0:.1f} s", flush=True)
     if args.probe_batch is not None:
         return probe_batch(args.probe_batch)
+    if args.compare_sums_source is not None:
+        compare_sums_with_parent(sums_ops, args.compare_sums_source, card)
+        print(card_line())
+        return 0
     counters = kernel_counters()
 
     # 3a. conv_bn_relu vs plain version on the card
@@ -615,23 +879,40 @@ def main(argv=None) -> int:
     batches = train_batches(host_rng, TRAIN_STEPS)
     train_gen = torch.Generator(device="cuda").manual_seed(SEED)
 
-    # one step on a copy: warms the allocator and cuDNN, and takes the census
-    # of BatchNorm input shapes for the kernel timings below
-    bn_shapes = collections.Counter()
+    # one step on a copy: warms the allocator and cuDNN, takes the census of
+    # BatchNorm input shapes, and counts the incoming gradients whose NHWC
+    # view is not contiguous (bn_train's backward copies those before the
+    # dual sums)
+    bn_shapes, dy_copies = collections.Counter(), collections.Counter()
     warm = copy.deepcopy(model)
-    hooks = [m.register_forward_pre_hook(
-        lambda mod, inp: bn_shapes.update([tuple(inp[0].permute(0, 2, 3, 1).shape)]))
-        for m in warm.modules() if isinstance(m, BatchNorm)]
+
+    def count_dy_copy(mod, grad_out):
+        g = grad_out[0]
+        if g is not None and not g.movedim(1, -1).is_contiguous():
+            dy_copies[(tuple(g.movedim(1, -1).shape), g.element_size())] += 1
+
+    for m in warm.modules():
+        if isinstance(m, BatchNorm):
+            m.register_forward_pre_hook(
+                lambda mod, inp: bn_shapes.update([tuple(inp[0].permute(0, 2, 3, 1).shape)]))
+            m.register_full_backward_pre_hook(count_dy_copy)
     make_supervised_train_step(warm, CLASSES, aug_cfg=cfg, fused_ce=True)(
         TrainState(warm, adam(1e-4)), torch.Generator(device="cuda").manual_seed(SEED + 1),
         *batches[0])
     torch.cuda.synchronize()
-    del warm, hooks
+    del warm
     torch.cuda.empty_cache()
-    if sum(bn_shapes.values()) != n_bn:
-        raise AssertionError("the BatchNorm census missed a module")
+    if sum(bn_shapes.values()) != n_bn or dict(bn_shapes) != BN_SHAPES:
+        raise AssertionError(f"BatchNorm census {dict(bn_shapes)}, expected {BN_SHAPES}")
     print("BatchNorm inputs of a train step (NHWC shape: count): "
           + ", ".join(f"{s}: {n}" for s, n in sorted(bn_shapes.items())), flush=True)
+    copy_bytes = sum(2 * math.prod(shape) * elt * n for (shape, elt), n in dy_copies.items())
+    dy_copy_report = {
+        "copies_per_step": sum(dy_copies.values()),
+        "shapes": {str(shape): n for (shape, _), n in sorted(dy_copies.items())},
+        "bytes_per_step": copy_bytes,
+        "bound_ms_per_step": roofline(copy_bytes, 0)[0]}
+    print(json.dumps({"bn_backward_dy_copies": dy_copy_report, "card": card}), flush=True)
 
     state = TrainState(model, adam(1e-4))
     train_step = make_supervised_train_step(model, CLASSES, aug_cfg=cfg, fused_ce=True)
@@ -698,15 +979,21 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # 3b. the three training kernels vs their plain versions at the step's shapes
-    sums_results = []
-    for shape in sorted(bn_shapes):
-        sums_results.append(check_sums(sums_ops, gen, shape, torch.bfloat16, timed=True))
+    sums_results = [check_sums(sums_ops, gen, shape, torch.bfloat16, timed=True)
+                    for shape in sorted(BN_SHAPES)]
     for shape in [(32, 512, 512, 16), (32, 256, 256, 32), (32, 16, 16, 512)]:
-        if shape not in bn_shapes:
-            raise AssertionError(f"{shape} is no BatchNorm input of the step")
         check_sums(sums_ops, gen, shape, torch.float32, timed=True)
-    for dtype in (torch.bfloat16, torch.float32):
-        check_sums(sums_ops, gen, SUMS_RAGGED, dtype, timed=False)
+    for shape in SUMS_EDGE_SHAPES:
+        for dtype, dy_dtype in ((torch.bfloat16, None), (torch.float32, None),
+                                (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)):
+            check_sums(sums_ops, gen, shape, dtype, timed=False, dy_dtype=dy_dtype)
+    check_sums(sums_ops, gen, (32, 64, 64, 128), torch.float32, timed=False,
+               dy_dtype=torch.bfloat16)
+    base = torch.randn(4 * 33 * 16 + 1, generator=gen, device="cuda")
+    unaligned = base[1:].view(4, 33, 16)                 # 4 bytes off: the generic path
+    torch.testing.assert_close(sums_ops.channel_sums(unaligned),
+                               sums_ops.channel_sums_reference(unaligned), rtol=1e-5, atol=1e-4)
+    sums_launch_checks = check_sums_launches(sums_ops, gen)
     dihedral_result = check_dihedral(dihedral_ops, host_rng)
     ce_results = {dt: check_fused_ce(ce_ops, gen, dt) for dt in (torch.float32, torch.bfloat16)}
 
@@ -752,7 +1039,7 @@ def main(argv=None) -> int:
     if min(total.values()) == 0:
         raise AssertionError(f"a kernel never launched on the main paths: {total}")
     src = f"{PORT}/csrc"
-    per_step = lambda key: sum(r[key] * bn_shapes[tuple(r["shape"])] for r in sums_results)
+    per_step = lambda key: sum(r[key] * BN_SHAPES[tuple(r["shape"])] for r in sums_results)
     ce32 = ce_results[torch.float32]
     entries = [{
         "name": "conv_bn_relu", "route": "cuda", "source": f"{src}/conv_bn_relu.cu",
@@ -779,10 +1066,17 @@ def main(argv=None) -> int:
         "launches": total["channel_sums"] + total["channel_dual_sums"],
         "launches_forward": total["channel_sums"],
         "launches_backward": total["channel_dual_sums"],
+        "device_kernels_per_call": sums_launch_checks["device_kernels_per_call"],
+        "host_us_per_call": sums_launch_checks["host_us_per_call"],
         "max_abs_err": max(r["max_abs_err"] for r in sums_results),
         "max_rel_err": max(r["max_rel_err"] for r in sums_results),
+        # 20 launches per event pair over rotating cold copies of the inputs
         "ms": per_step("sums_ms") + per_step("dual_ms"),
         "forward_ms": per_step("sums_ms"), "backward_ms": per_step("dual_ms"),
+        "single_launch_ms": per_step("sums_single_launch_ms")
+        + per_step("dual_single_launch_ms"),
+        # the profiler's kernel durations (no host launch overhead)
+        "kernel_ms": per_step("sums_kernel_ms") + per_step("dual_kernel_ms"),
         "plain_ms": per_step("sums_plain_ms") + per_step("dual_plain_ms"),
         "forward_plain_ms": per_step("sums_plain_ms"),
         "backward_plain_ms": per_step("dual_plain_ms"),
@@ -794,6 +1088,15 @@ def main(argv=None) -> int:
         "library_ms": per_step("sums_library_ms") + per_step("dual_library_ms"),
         "forward_library_ms": per_step("sums_library_ms"),
         "backward_library_ms": per_step("dual_library_ms"),
+        "share_of_bound": ((per_step("sums_bound_ms") + per_step("dual_bound_ms"))
+                           / (per_step("sums_ms") + per_step("dual_ms"))),
+        "per_shape": [{k: r[k] for k in (
+            "shape", "sums_ms", "dual_ms", "sums_bound_ms", "dual_bound_ms",
+            "sums_share_of_bound", "dual_share_of_bound", "sums_kernel_ms",
+            "dual_kernel_ms", "sums_single_launch_ms",
+            "dual_single_launch_ms", "sums_plain_ms", "dual_plain_ms", "sums_library_ms",
+            "dual_library_ms")} | {"batch_norms": BN_SHAPES[tuple(r["shape"])]}
+            for r in sums_results],
     }, {
         "name": "dihedral_normalize", "route": "cuda",
         "source": f"{src}/dihedral_normalize.cu",

@@ -21,10 +21,15 @@ from uda_aerial_semantic_segmentation_research_tpu_torch.ops.batch_norm import (
     bn_train,
 )
 from uda_aerial_semantic_segmentation_research_tpu_torch.ops.channel_sums import (
+    CLUSTER_SIZES,
+    FOLD_BYTES,
+    GENERIC_MIN_ROWS,
+    MIN_BLOCK_BYTES,
     channel_dual_sums,
     channel_dual_sums_reference,
     channel_sums,
     channel_sums_reference,
+    plan,
 )
 
 RTOL = 1e-5
@@ -280,6 +285,72 @@ def test_eval_batch_norm_is_unchanged_by_train_support():
 
 
 # ---------------------------------------------------------------------------
+# the launch plan (grid and scratch sized to the data)
+# ---------------------------------------------------------------------------
+# BatchNorm inputs of the B=32 resnet34 U-Net train step at 512 px (NHWC)
+TRAIN_STEP_SHAPES = [(32, 16, 16, 512), (32, 32, 32, 256), (32, 64, 64, 128),
+                     (32, 128, 128, 64), (32, 256, 256, 32), (32, 256, 256, 64),
+                     (32, 512, 512, 16)]
+H100_SMS = 132
+# the most clusters of 1, 2, 4, 8 blocks an H100 could run at one block per SM
+H100_CLUSTERS = tuple(H100_SMS // k for k in CLUSTER_SIZES)
+
+
+@pytest.mark.parametrize("shape", TRAIN_STEP_SHAPES)
+@pytest.mark.parametrize("elts", [(2, 0), (4, 0), (2, 2), (4, 2)],
+                         ids=["sums_bf16", "sums_f32", "dual_bf16", "dual_f32_bf16"])
+def test_plan_sizes_grid_and_partials_to_the_train_step_shapes(shape, elts):
+    """Every BatchNorm input of the step takes the bulk path in one wave at
+    one block per SM, every row covered; the partial rows stay under 1% of
+    the input bytes and the last block reads at most FOLD_BYTES of them."""
+    m, c = int(np.prod(shape[:-1])), shape[-1]
+    p = plan(m, c, *elts, True, H100_CLUSTERS, H100_SMS)
+    assert p.cluster in CLUSTER_SIZES
+    assert p.blocks % p.cluster == 0 and p.blocks <= H100_SMS
+    assert p.partial_rows == p.blocks // p.cluster
+    assert p.rows_per_block * p.blocks >= m > p.rows_per_block * (p.blocks - 1)
+    input_bytes = m * c * sum(elts)
+    assert p.partial_rows * 2 * c * 4 <= min(FOLD_BYTES, 0.01 * input_bytes)
+    assert input_bytes // p.blocks >= MIN_BLOCK_BYTES
+    # the inputs are large enough for every cluster the card runs at once
+    assert p.partial_rows == H100_CLUSTERS[CLUSTER_SIZES.index(p.cluster)]
+
+
+def test_plan_takes_the_smallest_cluster_that_keeps_the_fold_small():
+    """Few channels: no cluster, all 132 SMs; 512 channels: clusters of 8."""
+    clusters = {c: plan(32 * 16 * 16 * 512 // c, c, 2, 0, True, H100_CLUSTERS,
+                        H100_SMS).cluster for c in (16, 32, 64, 128, 256, 512)}
+    assert clusters == {16: 1, 32: 1, 64: 2, 128: 4, 256: 8, 512: 8}
+    # a card that cannot run a cluster size falls back to the next one
+    assert plan(1 << 20, 16, 2, 0, True, (0, 66, 33, 16), H100_SMS).cluster == 2
+
+
+@pytest.mark.parametrize("case", [
+    dict(m=6, c=24, elts=(2, 0), aligned=True),       # bf16 row of 48 bytes
+    dict(m=6, c=12, elts=(4, 2), aligned=True),       # f32 rows of 48, bf16 of 24 bytes
+    dict(m=6, c=16, elts=(4, 0), aligned=False),      # a view 4 bytes off
+    dict(m=6, c=48, elts=(4, 0), aligned=True),       # 12 vectors a row: no power of two
+    dict(m=6, c=4096, elts=(2, 0), aligned=True),     # 512 vectors a row > 256 threads
+    dict(m=100000, c=3, elts=(4, 4), aligned=True),
+], ids=["c24_bf16", "mixed_c12", "unaligned", "c48_f32", "c4096_bf16", "c3_many_rows"])
+def test_plan_sends_what_the_bulk_kernel_cannot_take_to_the_generic_path(case):
+    p = plan(case["m"], case["c"], *case["elts"], case["aligned"], H100_CLUSTERS, H100_SMS)
+    assert p.cluster == 0
+    assert p.partial_rows == p.blocks <= H100_SMS
+    assert p.rows_per_block * p.blocks >= case["m"]
+    assert p.blocks == 1 or p.rows_per_block >= GENERIC_MIN_ROWS
+
+
+def test_plan_shrinks_the_grid_for_small_inputs():
+    """One block for a tiny input (M=1), more as the input grows, never more
+    than the card runs at once."""
+    assert plan(1, 16, 2, 0, True, H100_CLUSTERS, H100_SMS) == (1, 1, 1, 1)
+    sizes = [plan(m, 64, 2, 0, True, H100_CLUSTERS, H100_SMS).blocks
+             for m in (1, 4096, 16384, 65536, 1 << 20)]
+    assert sizes == sorted(sizes) and sizes[0] == 2 and sizes[-1] == H100_SMS
+
+
+# ---------------------------------------------------------------------------
 # the kernels on the card
 # ---------------------------------------------------------------------------
 def _assert_sums_close(got, ref, terms):
@@ -288,33 +359,47 @@ def _assert_sums_close(got, ref, terms):
     assert torch.all((got - ref).abs() <= bound), (got - ref).abs().max().item()
 
 
+def _check_on_gpu(gen, shape, dt_x, dt_dy):
+    """Kernel vs float64 sums, two launches bit-identical, one count each."""
+    x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(dt_x)
+    dy = torch.randn(shape, generator=gen, device="cuda").to(dt_dy)
+    before = channel_sums.launches, channel_dual_sums.launches
+    got = channel_sums(x)
+    got_dual = channel_dual_sums(dy, x)
+    again, dual_again = channel_sums(x), channel_dual_sums(dy, x)
+    torch.cuda.synchronize()
+    assert channel_sums.launches == before[0] + 2
+    assert channel_dual_sums.launches == before[1] + 2
+    assert torch.equal(got, again) and torch.equal(got_dual, dual_again)   # deterministic
+    x64, dy64 = x.double().reshape(-1, shape[-1]), dy.double().reshape(-1, shape[-1])
+    _assert_sums_close(got[0], x64.sum(0).float(), x64.abs().sum(0).float())
+    _assert_sums_close(got[1], (x64 * x64).sum(0).float(), (x64 * x64).sum(0).float())
+    _assert_sums_close(got_dual[0], dy64.sum(0).float(), dy64.abs().sum(0).float())
+    _assert_sums_close(got_dual[1], (dy64 * x64).sum(0).float(),
+                       (dy64 * x64).abs().sum(0).float())
+
+
 @pytest.mark.gpu
 def test_kernels_match_plain_versions_on_gpu():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    # vector path (C | 128 and 128 | C), generic path (24, 3, 1000), ragged rows
+    # the bulk path (C=16..512, M=1, ragged rows) and the generic one (C=24
+    # in bf16, 3, 1000, 8 in bf16, C/VEC not a power of two), all four dtype
+    # pairs
     shapes = [(2, 16, 16, 16), (3, 7, 5, 16), (2, 8, 8, 64), (1, 4, 4, 512), (5, 3, 2048),
-              (3, 7, 5, 24), (4, 9, 3), (2, 1000), (1, 1, 1, 8), (70000, 32)]
+              (3, 7, 5, 24), (4, 9, 3), (2, 1000), (1, 1, 1, 8), (70000, 32), (1, 16),
+              (1, 24), (1, 512), (7, 48), (9, 4096)]
     for shape in shapes:
         for dt_x, dt_dy in ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
                             (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)):
-            x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(dt_x)
-            dy = torch.randn(shape, generator=gen, device="cuda").to(dt_dy)
-            before = channel_sums.launches, channel_dual_sums.launches
-            got = channel_sums(x)
-            got_dual = channel_dual_sums(dy, x)
-            again = channel_sums(x)
-            torch.cuda.synchronize()
-            assert channel_sums.launches == before[0] + 2
-            assert channel_dual_sums.launches == before[1] + 1
-            assert torch.equal(got, again)                       # deterministic
-            x64, dy64 = x.double().reshape(-1, shape[-1]), dy.double().reshape(-1, shape[-1])
-            _assert_sums_close(got[0], x64.sum(0).float(), x64.abs().sum(0).float())
-            _assert_sums_close(got[1], (x64 * x64).sum(0).float(), (x64 * x64).sum(0).float())
-            _assert_sums_close(got_dual[0], dy64.sum(0).float(), dy64.abs().sum(0).float())
-            _assert_sums_close(got_dual[1], (dy64 * x64).sum(0).float(),
-                               (dy64 * x64).abs().sum(0).float())
+            _check_on_gpu(gen, shape, dt_x, dt_dy)
+    # every BatchNorm input of the B=32 train step in bf16, one in f32, and
+    # the mixed dual form at one
+    for shape in TRAIN_STEP_SHAPES:
+        _check_on_gpu(gen, shape, torch.bfloat16, torch.bfloat16)
+    _check_on_gpu(gen, (32, 128, 128, 64), torch.float32, torch.float32)
+    _check_on_gpu(gen, (32, 64, 64, 128), torch.bfloat16, torch.float32)
     # an unaligned view takes the generic path and still agrees
     base = torch.randn(4 * 33 * 16 + 1, generator=gen, device="cuda")
     view = base[1:].view(4, 33, 16)
@@ -324,6 +409,38 @@ def test_kernels_match_plain_versions_on_gpu():
         channel_sums(torch.zeros(2, 8, 4, 4, device="cuda").permute(0, 2, 3, 1))
     with pytest.raises(TypeError):
         channel_sums(torch.zeros(4, 8, device="cuda", dtype=torch.float16))
+
+
+@pytest.mark.gpu
+def test_kernels_rearm_their_counter_and_keep_streams_apart_on_gpu():
+    """1,000 calls in a row give the same bits (the last block re-arms the
+    ticket counter), and calls on two streams at once (one counter each)
+    agree with the plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(32, 32, 32, 256, generator=gen, device="cuda").bfloat16()
+    dy = torch.randn(32, 32, 32, 256, generator=gen, device="cuda").bfloat16()
+    first, first_dual = channel_sums(x), channel_dual_sums(dy, x)
+    runs = [(channel_sums(x), channel_dual_sums(dy, x)) for _ in range(500)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, first) and torch.equal(b, first_dual) for a, b in runs)
+    x2 = torch.randn(8, 64, 64, 128, generator=gen, device="cuda").bfloat16()
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(50):
+        with torch.cuda.stream(streams[0]):
+            outs[0].append(channel_sums(x))
+        with torch.cuda.stream(streams[1]):
+            outs[1].append(channel_dual_sums(x2, x2))
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, outs[0][0]) for o in outs[0])
+    assert all(torch.equal(o, outs[1][0]) for o in outs[1])
+    torch.testing.assert_close(outs[0][0], channel_sums_reference(x), rtol=1e-5, atol=1e-2)
+    torch.testing.assert_close(outs[1][0], channel_dual_sums_reference(x2, x2),
+                               rtol=1e-5, atol=1e-2)
 
 
 @pytest.mark.gpu

@@ -78,6 +78,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "mbarrier.cuh"
+
 namespace {
 
 constexpr int FOLD_THREADS = 256;
@@ -274,34 +276,6 @@ struct Cfg {
 template <int CH>
 __device__ __forceinline__ int swizzle(int p) {
   return CH == 4 ? (p >> 1) & 3 : CH == 2 ? (p >> 2) & 1 : 0;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred done;\n"
-      "WAIT_%=:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT_%=;\n"
-      "}\n" :: "r"(bar), "r"(parity) : "memory");
-}
-
-// generic-proxy shared memory accesses before, async-proxy (TMA) after
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
