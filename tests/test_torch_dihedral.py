@@ -22,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from uda_aerial_semantic_segmentation_research_tpu_torch.ops import augment
+from uda_aerial_semantic_segmentation_research_tpu_torch.ops import augment, dihedral
 from uda_aerial_semantic_segmentation_research_tpu_torch.ops.dihedral import (
     abc_from_flags,
     dihedral_normalize,
@@ -294,29 +294,128 @@ def test_augment_batch_rejects_non_square_tiles_and_a_missing_generator():
 # ---------------------------------------------------------------------------
 # the kernel on the card
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# the launch plan (host only)
+# ---------------------------------------------------------------------------
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("masks", [-1, 0])
+@pytest.mark.parametrize("b", [1, 32, 128])
+def test_plan_takes_the_bulk_path_at_the_train_step_shapes(b, masks):
+    p = dihedral.plan(b, 512, 3, masks, True, H100_SMS)
+    assert p.bulk and (p.rows, p.cols) == (64, 256) and p.stages == 2
+    assert p.smem <= dihedral.SMEM_LIMIT
+    # two waves of the blocks the SMs hold at once, never more than the units
+    units = b * (512 // 64) * (512 // 256)
+    assert p.grid == min(units, 2 * H100_SMS)
+    if b == 128:
+        assert units > p.stages * p.grid     # blocks reuse their stages
+
+
+@pytest.mark.parametrize("case", [
+    (32, 512, 3, 0, False),   # unaligned pointer
+    (8, 50, 3, 0, True),      # pitch of 150 bytes: not a whole number of 16-byte vectors
+    (8, 100, 3, -1, True),    # S not a multiple of 16
+    (4, 512, 1, 0, True), (4, 512, 2, 0, True), (4, 512, 4, 0, True),
+    (4, 512, 5, -1, True), (4, 512, 8, 0, True),   # C other than 3
+    (32, 512, 3, 1, True), (32, 512, 3, 2, True),  # int32 / int64 masks
+])
+def test_plan_sends_what_the_bulk_kernel_cannot_take_to_the_generic_path(case):
+    b, s, c, masks, aligned = case
+    p = dihedral.plan(b, s, c, masks, aligned, H100_SMS)
+    assert not p.bulk and p.smem == 0
+    assert 1 <= p.grid <= min(b * s, dihedral.GENERIC_BLOCKS_PER_SM * H100_SMS)
+
+
+@pytest.mark.parametrize("s", [16, 32, 48, 80, 496, 512, 528, 1024, 1040, 4096])
+@pytest.mark.parametrize("masks", [-1, 0])
+def test_plan_fits_shared_memory_and_never_outgrows_the_work(s, masks):
+    for b in (1, 3, 33):
+        p = dihedral.plan(b, s, 3, masks, True, H100_SMS)
+        assert p.bulk and p.rows % 16 == 0 and p.cols % 16 == 0
+        assert p.rows <= s and p.cols <= s
+        assert p.smem <= dihedral.SMEM_LIMIT
+        units = b * -(-s // p.rows) * -(-s // p.cols)
+        assert 1 <= p.grid <= units
+
+
+def test_plan_launches_for_the_smallest_tiles():
+    """S = 1 and a single unit still launch one block; the generic path
+    takes one block an output row."""
+    for b, s, c, grid in ((1, 1, 3, 1), (1, 1, 1, 1), (1, 7, 8, 7), (1, 16, 3, 1)):
+        p = dihedral.plan(b, s, c, 0, True, H100_SMS)
+        assert p.grid == grid and p.bulk == (s == 16)
+
+
+def test_stage_layout_holds_a_unit_either_way():
+    """The bytes a stage reserves hold a unit's source bytes staged densely
+    (untransposed) and in skewed rows (transposed), rows 16-byte aligned and
+    apart, for every unit an image cut into tiles can give."""
+    for rows, cols in ((16, 16), (64, 256), (48, 48), (64, 80), (32, 512)):
+        for ch in (3, 1):
+            area = dihedral._area_bytes(rows, cols, ch)
+            assert area % 128 == 0 and area >= rows * cols * ch
+            for rr in range(16, rows + 1, 16):      # a band cut by the image's edge
+                chunks = rr * ch // 16
+                offs = [dihedral._skewed_offset(r, chunks) for r in range(cols)]
+                assert all(o % 16 == 0 for o in offs)
+                assert all(b - a >= rr * ch for a, b in zip(offs, offs[1:]))
+                assert offs[-1] + rr * ch <= area
+
+
+# ---------------------------------------------------------------------------
+# the kernel on the card
+# ---------------------------------------------------------------------------
+# (B, S, C): every C of 1-5 and 8, every S of the edges, B of 1 and 33; the
+# bulk path at S = 16, 48, 80 (a 16-row band, an 80-column unit), 512, 1040
+# (a 16-column unit), and at B = 70 (blocks of four units or more, which
+# reuse their stages)
+GPU_CASES = [(1, 1, 1), (33, 7, 2), (2, 16, 3), (3, 33, 4), (33, 50, 3), (4, 100, 5),
+             (33, 129, 8), (3, 48, 3), (5, 80, 3), (1, 512, 3), (33, 512, 3), (70, 512, 3),
+             (2, 1040, 3)]
+GPU_FLAGS = {"mixed": range(8), "untransposed": (0, 2, 4, 6), "transposed": (1, 3, 5, 7)}
+
+
 @pytest.mark.gpu
 def test_kernel_matches_plain_version_on_gpu():
-    """Bit-exact images and masks for every group element, sizes that are
-    and are not multiples of the 32-pixel tile, 1..4 channels."""
+    """Bit-exact images and masks against the plain version on both paths:
+    C = 1..5 and 8, S from 1 to 1040 (on and off the 16-pixel grid, units cut
+    by the image's edge), B = 1 and 33, an aligned and an unaligned (offset
+    1) image view, int32 and int64 flags (high bits set), every mask kind and
+    none, ``normalize`` both ways, batches of every element, of none
+    transposed and of all transposed; two launches bit-identical."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     rng = np.random.default_rng(0)
-    for size, ch in ((64, 3), (50, 3), (7, 3), (33, 1), (96, 4), (512, 3)):
-        images = torch.from_numpy(
-            rng.integers(0, 256, (8, size, size, ch)).astype(np.uint8)).cuda()
-        masks = torch.from_numpy(rng.integers(0, 255, (8, size, size)).astype(np.int32)).cuda()
-        flags = torch.from_numpy(rng.permutation(8).astype(np.int32)).cuda()
-        for normalize in (False, True) if ch == 3 else (False,):
-            for mk in (None, torch.uint8, torch.int32, torch.int64):
-                mt = None if mk is None else masks.to(mk)
-                before = dihedral_normalize.launches
-                x, m = dihedral_normalize(images, flags, mt, normalize=normalize)
-                torch.cuda.synchronize()
-                assert dihedral_normalize.launches == before + 1
-                x_ref, m_ref = dihedral_normalize_reference(images, flags, mt,
-                                                            normalize=normalize)
-                assert torch.equal(x, x_ref)
-                assert (m is None and m_ref is None) or torch.equal(m, m_ref)
+    for b, size, ch in GPU_CASES:
+        n = b * size * size * ch
+        base = torch.from_numpy(rng.integers(0, 256, n + 1).astype(np.uint8)).cuda()
+        masks = torch.from_numpy(rng.integers(0, 255, (b, size, size)).astype(np.int32)).cuda()
+        for unaligned in (False, True):
+            images = (base[1:] if unaligned else base[:n]).view(b, size, size, ch)
+            for cls, pick in GPU_FLAGS.items():
+                flags = torch.from_numpy(
+                    rng.choice(np.asarray(pick, np.int32), b)).cuda()
+                wide = flags.long() + (torch.arange(b, device="cuda") % 7 << 3) + (3 << 33)
+                for fl in (flags, wide):
+                    for normalize in (False, True) if ch == 3 else (False,):
+                        for mk in (None, torch.uint8, torch.int32, torch.int64):
+                            mt = None if mk is None else masks.to(mk)
+                            before = dihedral_normalize.launches
+                            x, m = dihedral_normalize(images, fl, mt, normalize=normalize)
+                            x2, m2 = dihedral_normalize(images, fl, mt, normalize=normalize)
+                            torch.cuda.synchronize()
+                            assert dihedral_normalize.launches == before + 2
+                            where = (b, size, ch, unaligned, cls, fl.dtype, normalize, mk)
+                            x_ref, m_ref = dihedral_normalize_reference(
+                                images, fl, mt, normalize=normalize)
+                            assert torch.equal(x, x_ref), where
+                            assert torch.equal(x, x2), where
+                            if mk is None:
+                                assert m is None and m_ref is None
+                            else:
+                                assert torch.equal(m, m_ref) and torch.equal(m, m2), where
     with pytest.raises(ValueError):
         dihedral_normalize(images.permute(0, 2, 1, 3), flags)        # not contiguous
     with pytest.raises(ValueError):

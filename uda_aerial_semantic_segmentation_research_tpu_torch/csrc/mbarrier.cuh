@@ -10,9 +10,14 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// one arrival (the thread that posts the expected bytes) completes a phase
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(bar) : "memory");
+// `count` arrivals (by default one: the thread that posts the expected
+// bytes) complete a phase
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
 }
 
 __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
@@ -42,6 +47,17 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar) : "memory");
+}
+
+// 16-byte copy global -> shared through L2 (cp.async, both addresses 16-byte
+// aligned); the thread's arrival on `bar` once its copies so far have landed
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(dst), "l"(reinterpret_cast<uint64_t>(src)) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" :: "r"(bar) : "memory");
 }
 
 }  // namespace

@@ -16,7 +16,9 @@ computes, so the port equals that path exactly; the Pallas kernel multiplies
 by ``1/255`` instead and differs by at most one float32 ulp.
 
 ``dihedral_normalize`` launches the kernel (one launch for images and
-masks) for CUDA tensors and raises on what the kernel does not take; for
+masks, sized by ``plan``: the bulk path for the train step's shapes, the
+generic path for the rest) for CUDA tensors and raises on what the kernel
+does not take; for
 CPU tensors it computes the plain PyTorch version
 ``dihedral_normalize_reference``.  ``dihedral_normalize.launches`` counts
 the kernel launches.
@@ -26,14 +28,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from uda_aerial_semantic_segmentation_research_tpu_torch.config import Config
 
 MAX_CHANNELS = 8
-_GRID_LIMIT = 65535
-_TILE = 32  # pixels per tile side (TILE in csrc/dihedral_normalize.cu)
 _MASK_KINDS = {torch.uint8: 0, torch.int32: 1, torch.int64: 2}
 
 
@@ -90,6 +91,66 @@ def dihedral_normalize_reference(images, flags, masks=None, *, normalize=False):
     return x, m
 
 
+# the launch plan; the kernel checks it (csrc/dihedral_normalize.cu head note)
+TILE_ROWS = 64             # bulk kernel: most output rows of a unit
+TILE_COLS = 256            # bulk kernel: most output columns of a unit
+STAGES = 2                 # bulk kernel: units in flight a block
+WAVES = 2                  # bulk kernel: blocks per SM (an SM holds one at a time)
+RING_OFFSET = 3200         # bulk kernel: shared bytes before the ring (barriers, tables)
+SMEM_LIMIT = 232448        # shared bytes a block may opt into on an H100 (227 KB)
+GENERIC_BLOCKS_PER_SM = 8  # generic kernel: blocks of 256 threads an SM
+_MAX_UNITS = 2 ** 31 - 1
+
+
+class Plan(NamedTuple):
+    bulk: bool     # bulk kernel (bulk copies, vector stores); else the generic kernel
+    grid: int
+    smem: int      # dynamic shared bytes (bulk kernel)
+    rows: int      # bulk kernel: a unit is rows x cols output pixels
+    cols: int
+    stages: int
+
+
+def _skewed_offset(r: int, chunks: int) -> int:
+    """Byte offset of staged row r of a transposed unit whose rows are
+    ``chunks`` 16-byte chunks: 16 bytes of skew every 4 rows (``t_off`` in
+    the kernel)."""
+    return 16 * (r * chunks + r // 4)
+
+
+def _area_bytes(rows: int, cols: int, ch: int) -> int:
+    """Bytes of a stage's image (ch=3) or mask (ch=1) area: a unit's source
+    bytes staged dense (untransposed) or as ``cols`` skewed rows
+    (transposed), rounded up to 128 (``area_bytes`` in the kernel)."""
+    chunks = rows * ch // 16
+    skewed = _skewed_offset(cols - 1, chunks) + 16 * chunks
+    return -(-max(rows * cols * ch, skewed) // 128) * 128
+
+
+@functools.lru_cache(maxsize=256)
+def plan(b: int, s: int, c: int, mask_kind: int, aligned: bool, sms: int) -> Plan:
+    """Launch of one call on (b, s, s, c) uint8 images with masks of
+    ``mask_kind`` (-1 none, 0 uint8, 1 int32, 2 int64) on a card with ``sms``
+    SMs; ``aligned``: the image and mask pointers are 16-byte aligned.
+
+    Bulk path for c == 3, no masks or uint8 masks, s a multiple of 16 (a
+    source row is a whole number of 16-byte vectors) and aligned pointers:
+    units of up to ``TILE_ROWS`` x ``TILE_COLS`` output pixels, ``STAGES`` of
+    them in flight a block, and ``WAVES`` blocks per SM, which holds one at
+    a time (never more blocks than units), so that blocks that drew
+    slower units (transposed ones) are evened out by the hardware handing
+    the next block to the SM that is free.  Otherwise the generic path: one
+    block an output row, at most ``GENERIC_BLOCKS_PER_SM`` blocks an SM.
+    """
+    if not (c == 3 and mask_kind in (-1, 0) and s % 16 == 0 and aligned):
+        return Plan(False, max(1, min(b * s, sms * GENERIC_BLOCKS_PER_SM)), 0, 0, 0, 0)
+    rows, cols = min(TILE_ROWS, s), min(TILE_COLS, s)
+    stage = _area_bytes(rows, cols, 3) + (_area_bytes(rows, cols, 1) if mask_kind == 0 else 0)
+    units = b * -(-s // rows) * -(-s // cols)
+    grid = max(1, min(units, WAVES * sms))
+    return Plan(True, grid, RING_OFFSET + STAGES * stage, rows, cols, STAGES)
+
+
 @functools.cache
 def _library():
     """The built kernel library with its C signatures declared."""
@@ -99,9 +160,23 @@ def _library():
 
     lib = load_library("dihedral_normalize")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.dihedral_normalize_launch.argtypes = [ptr] * 5 + [i32] * 5 + [f32] * 6 + [ptr]
+    lib.dihedral_normalize_prepare.argtypes = []
+    lib.dihedral_normalize_prepare.restype = i32
+    lib.dihedral_normalize_launch.argtypes = (
+        [ptr, ptr, i32, ptr, ptr, ptr] + [i32] * 5 + [f32] * 6 + [i32] * 6 + [ptr])
     lib.dihedral_normalize_launch.restype = i32
     return lib
+
+
+@functools.cache
+def _device_sms(index: int) -> int:
+    """SMs of the current device, ``index``; also lets the bulk kernel use the
+    device's shared memory there, which every bulk launch needs."""
+    sms = _library().dihedral_normalize_prepare()
+    if sms < 0:
+        raise RuntimeError(f"dihedral_normalize cannot prepare its kernel on cuda:{index} "
+                           f"(CUDA error {-sms})")
+    return sms
 
 
 def _check(images, flags, masks, normalize):
@@ -132,11 +207,12 @@ def _check(images, flags, masks, normalize):
 def dihedral_normalize(images, flags, masks=None, *, normalize: bool = False):
     """Fused per-image dihedral + dequant (+ ImageNet normalize).
 
-    ``images`` uint8 (B, S, S, C) square tiles; ``flags`` int (B,) bitmask
-    (bit 0 transpose, bit 1 flip width, bit 2 flip height; higher bits are
-    ignored); ``masks`` optional uint8/int32/int64 (B, S, S) transformed with
-    the same gates.  Returns (float32 images, int32 masks or None).  CUDA
-    tensors launch the kernel (contiguous, C <= 8) or raise; CPU tensors run
+    ``images`` uint8 (B, S, S, C) square tiles; ``flags`` int32/int64 (B,)
+    bitmask (bit 0 transpose, bit 1 flip width, bit 2 flip height; higher
+    bits are ignored); ``masks`` optional uint8/int32/int64 (B, S, S)
+    transformed with the same gates.  Returns (float32 images, int32 masks or
+    None).  CUDA tensors launch the kernel (contiguous images and masks,
+    C <= 8; one device kernel a call) or raise; CPU tensors run
     ``dihedral_normalize_reference``.
     """
     _check(images, flags, masks, normalize)
@@ -150,22 +226,32 @@ def dihedral_normalize(images, flags, masks=None, *, normalize: bool = False):
         raise ValueError("dihedral_normalize needs contiguous images and masks")
     if not (1 <= c <= MAX_CHANNELS):
         raise ValueError(f"dihedral_normalize takes 1..{MAX_CHANNELS} channels, got {c}")
-    if b == 0 or s == 0 or b > _GRID_LIMIT or -(-s // _TILE) > _GRID_LIMIT:
+    if b == 0 or s == 0 or b * s > _MAX_UNITS:
         raise ValueError(f"dihedral_normalize cannot launch on {tuple(images.shape)}")
+    device = images.device
+    if device.index != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            return _launch(images, flags, masks, normalize)
+    return _launch(images, flags, masks, normalize)
 
-    lib = _library()
-    flags32 = flags.to(torch.int32).contiguous()
-    out = torch.empty(images.shape, dtype=torch.float32, device=images.device)
+
+def _launch(images, flags, masks, normalize):
+    b, s, _, c = images.shape
+    device = images.device
+    mask_kind = -1 if masks is None else _MASK_KINDS[masks.dtype]
+    img_ptr, mask_ptr = images.data_ptr(), None if masks is None else masks.data_ptr()
+    p = plan(b, s, c, mask_kind, img_ptr % 16 == 0 and (mask_ptr is None or mask_ptr % 16 == 0),
+             _device_sms(device.index))
+    out = torch.empty(images.shape, dtype=torch.float32, device=device)
     out_masks = (None if masks is None else
-                 torch.empty(masks.shape, dtype=torch.int32, device=images.device))
-    with torch.cuda.device(images.device):
-        err = lib.dihedral_normalize_launch(
-            images.data_ptr(), flags32.data_ptr(), out.data_ptr(),
-            None if masks is None else masks.data_ptr(),
-            None if masks is None else out_masks.data_ptr(),
-            0 if masks is None else _MASK_KINDS[masks.dtype], b, s, c, int(normalize),
-            *Config.NORMALIZE_MEAN, *Config.NORMALIZE_STD,
-            torch.cuda.current_stream().cuda_stream)
+                 torch.empty(masks.shape, dtype=torch.int32, device=device))
+    # int64 flags are read through their low word, in place: no conversion kernel
+    words = flags.element_size() // 4
+    err = _library().dihedral_normalize_launch(
+        img_ptr, flags.data_ptr(), flags.stride(0) * words, out.data_ptr(), mask_ptr,
+        None if masks is None else out_masks.data_ptr(), mask_kind, b, s, c, int(normalize),
+        *Config.NORMALIZE_MEAN, *Config.NORMALIZE_STD, int(p.bulk), p.grid, p.rows, p.cols,
+        p.stages, p.smem, torch._C._cuda_getCurrentRawStream(device.index))
     if err:
         raise RuntimeError(f"dihedral_normalize kernel launch failed: CUDA error {err}")
     dihedral_normalize.launches += 1
