@@ -39,8 +39,12 @@
      masks); timed per batch as 20 launches per event pair on rotating cold
      copies and as the profiler's kernel duration, the single-launch time and
      the wrapper's host time beside; then ``augment_batch`` at the step's
-     shape (kernel, cast to bf16 and back, normalize), the front end's whole
-     device cost, on its own line;
+     shape for the dihedral-only pipeline, ``WEAK`` and ``STRONG`` (draws
+     from a generator on the card), one line each: ms as 20 calls per event
+     pair on cold copies, device ms and launches by kind and by stage
+     (draws, dihedral kernel + cast, warps, noise, blur, colour, HSV,
+     normalize), the peak memory a call adds, and one call under
+     ``torch.cuda.set_sync_debug_mode("error")`` (no host sync);
    - ``fused_cross_entropy`` at (32, 512, 512, 23) f32 and bf16, forward
      and backward;
 4. drives the serving path -- resnet34 U-Net, 23 classes, 512 px tiles,
@@ -50,19 +54,24 @@
    and breaks its device time down by kernel (``torch.profiler``), and
    checks the fused path against the plain one in f32;
 5. drives the train path at the same width -- ``make_supervised_train_step``
-   with the dihedral-only augmentation, ``fused_ce=True`` and ``adam(1e-4)``,
-   B=32 uint8 tiles and masks, 5 steps from seeded weights and batches --
+   with its default augmentation (``WEAK``, every stage, as in the JAX
+   package), ``fused_ce=True`` and ``adam(1e-4)``, B=32 uint8 tiles and
+   masks, 5 steps from seeded weights and batches --
    and checks finite losses, changed parameters and BatchNorm buffers,
    ``hist.sum()``, and the exact launch counts per step (one
    ``channel_sums`` and one ``channel_dual_sums`` per BatchNorm, one
    ``dihedral_normalize``, two ``fused_cross_entropy``); times the step,
    reads the peak memory and breaks the device time down by kind, with
    launches per kind; counts the incoming BatchNorm gradients that
-   ``bn_train`` has to copy before the dual sums;
+   ``bn_train`` has to copy before the dual sums; then times the same step
+   with the dihedral-only augmentation on its own line;
 6. runs ``make_eval_step`` on the trained model (2 ``conv_bn_relu``
    launches, finite loss);
-7. holds one float32 train step on the card (kernels) against the same
-   step on a CPU copy of the model (plain versions), same flags;
+7. holds every augmentation stage of WEAK and STRONG (float32, every gate
+   on) on the card against the CPU, stage by stage, and one float32 train
+   step on the card (kernels) against the same step on a CPU copy of the
+   model (plain versions), WEAK in float32 with the same seeded draws
+   (made once on the host);
 8. prints one JSON line of kernel results, the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -119,7 +128,9 @@ PROFILE_CATEGORIES = [
     ("channel_sums kernels", ("channel_sums_bulk_kernel", "channel_sums_generic_kernel")),
     ("dihedral_normalize kernel", ("dihedral_normalize_",)),
     ("optimizer (foreach Adam, clip)", ("multi_tensor_apply",)),
-    ("argmax + confusion matrix", ("ArgMaxOps", "scatter_gather")),
+    ("augmentation sorts, pads, index copies, bilinear resize",
+     ("sort", "Sort", "_pad", "bilinear", "index_", "indexFunc", "index_elementwise")),
+    ("argmax, confusion matrix, gathers / scatters", ("ArgMaxOps", "scatter_gather")),
     ("cuDNN convolution", ("cudnn", "cutlass", "xmma", "sm90_", "conv")),
     ("nearest upsample", ("upsample",)),
     ("concat", ("CatArray", "cat_")),
@@ -752,43 +763,195 @@ def compare_dihedral_with_parent(ops, source, card):
         "card": card}}), flush=True)
 
 
+def augment_stages(augment, ops, cfg, images, masks, gen):
+    """(stage name, function) of ``augment_batch``'s pieces in order, each on
+    the previous piece's output (computed once here) and on the same draws:
+    the draws themselves, the dihedral kernel with the cast to the compute
+    dtype, the warps, each photometric stage, the float32 normalize."""
+    n, shape = images.shape[0], tuple(images.shape)
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[cfg.compute_dtype]
+
+    def draws():
+        return (augment._sample_dihedral(gen, n, cfg),
+                augment.sample_params(gen, shape, cfg, has_masks=True))
+
+    abc, params = draws()
+    flags = ops.flags_from_abc(*abc)
+    front = lambda: ops.dihedral_normalize(images, flags, masks)
+    x, m = front()
+    x = x.to(dt)
+    stages = [("draws", draws), ("dihedral kernel + cast", lambda: front()[0].to(dt))]
+    if cfg.p_ssr > 0 or cfg.p_distort > 0:
+        stages.append(("warps", lambda x=x, m=m: augment._warp_stage(x, m, params.warp, cfg)))
+        x, m = stages[-1][1]()
+    photometric = params.photometric
+    for name, p, fn, d in (("noise", cfg.p_noise, augment._noise_stage, photometric.noise),
+                           ("blur", cfg.p_blur, augment._blur_stage, photometric.blur),
+                           ("colour", cfg.p_color, augment._color_stage, photometric.color),
+                           ("hsv", cfg.p_hsv, augment._hsv_stage, photometric.hsv)):
+        if p > 0:
+            stages.append((name, lambda x=x, fn=fn, d=d: fn(x, d, cfg)))
+            x = stages[-1][1]()
+    mean, std = ops.imagenet_stats(images.device)
+    stages.append(("normalize", lambda x=x: (x.float() - mean) / std))
+    return stages
+
+
 def time_augment_batch(augment, ops, host_rng, card):
-    """The train step's front end at its shape: ``augment_batch`` on a uint8
-    (32, 512, 512, 3) batch with uint8 masks (the kernel, the cast to the
-    step's bf16 compute dtype, back to f32, the ImageNet normalize), 20 calls
-    per event pair on rotating cold copies, and its device time by kind."""
-    cfg = dihedral_only(augment)
+    """The train step's front end at its shape, (32, 512, 512, 3) uint8 with
+    uint8 masks, for the dihedral-only pipeline, WEAK and STRONG: draws from
+    a generator on the card, as the step makes them.  Per pipeline: ms as 20
+    calls per event pair on rotating cold copies, the profiler's device ms
+    and launches of the whole call by kind and by stage (``augment_stages``),
+    the peak memory a call adds, and one call under
+    ``torch.cuda.set_sync_debug_mode("error")``, which raises if anything
+    in the call waits on the host."""
     images = torch.from_numpy(host_rng.integers(0, 256, (TRAIN_BATCH, TILE, TILE, 3),
                                                 dtype=np.uint8)).cuda()
     masks = torch.from_numpy(host_rng.integers(0, CLASSES, (TRAIN_BATCH, TILE, TILE),
                                                dtype=np.uint8)).cuda()
-    abc = ops.abc_from_flags(dihedral_flags(host_rng, "mixed", TRAIN_BATCH))
-    fn = lambda im, mk: augment.augment_batch(None, im, mk, cfg=cfg, abc=abc)
     inputs = [(images, masks)] + rotation(lambda: (images.clone(), masks.clone()),
                                           images.numel() + masks.numel())[1:]
-    ms = device_ms(cycling(fn, inputs))
-    calls = 10
-    by_kind = collections.defaultdict(float)
-    launches = collections.Counter()
-    for name, us in device_events(cycling(fn, inputs), calls):
-        kind = next((c for c, keys in PROFILE_CATEGORIES if any(k in name for k in keys)),
-                    "other")
-        by_kind[kind] += us / 1e3 / calls
-        launches[kind] += 1
     n_img, n_mask = images.numel(), masks.numel()
-    # the function's least bytes: uint8 images and masks in, f32 images and
-    # int32 masks out; and what the chain after the kernel moves as written
-    # (f32 -> bf16, bf16 -> f32, subtract, divide: each reads and writes once)
-    chain_bytes = n_img * ((4 + 2) + (2 + 4) + 8 + 8)
-    print(json.dumps({"augment_batch": {
-        "shape": [TRAIN_BATCH, TILE, TILE, 3], "masks": "uint8", "compute_dtype": cfg.compute_dtype,
-        "ms": ms, "device_ms_by_kind": dict(by_kind),
-        "launches_by_kind": {k: n / calls for k, n in launches.items()},
-        "bound_ms": roofline(5 * n_img + 5 * n_mask, 0)[0],
-        "chain_after_kernel_bytes": chain_bytes,
-        "chain_after_kernel_bound_ms": roofline(chain_bytes, 0)[0],
-        "timed_with": "20 calls per event pair, rotating copies > 2x L2", "card": card}}),
-        flush=True)
+    results = {}
+    for name, cfg in (("dihedral only", dihedral_only(augment)), ("WEAK", augment.WEAK),
+                      ("STRONG", augment.STRONG)):
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        fn = lambda im, mk, cfg=cfg, gen=gen: augment.augment_batch(gen, im, mk, cfg=cfg)
+        ms = device_ms(cycling(fn, inputs))
+        calls = 10
+        by_kind, kind_launches = collections.defaultdict(float), collections.Counter()
+        for ev, us in device_events(cycling(fn, inputs), calls):
+            kind = next((c for c, keys in PROFILE_CATEGORIES if any(k in ev for k in keys)),
+                        "other")
+            by_kind[kind] += us / 1e3 / calls
+            kind_launches[kind] += 1
+        by_stage = {}
+        for stage, stage_fn in augment_stages(augment, ops, cfg, images, masks, gen):
+            events = device_events(stage_fn, calls)
+            by_stage[stage] = {"device_ms": sum(us for _, us in events) / 1e3 / calls,
+                               "launches": len(events) / calls}
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn(images, masks)
+        torch.cuda.synchronize()
+        peak_gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            x, m = fn(images, masks)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        if (tuple(x.shape) != tuple(images.shape) or x.dtype != torch.float32
+                or m.dtype != torch.int32 or not torch.isfinite(x).all()
+                or m.min() < 0 or m.max() >= CLASSES):
+            raise AssertionError(f"augment_batch {name} gave wrong images or masks")
+        results[name] = {
+            "shape": [TRAIN_BATCH, TILE, TILE, 3], "masks": "uint8",
+            "compute_dtype": cfg.compute_dtype, "ms": ms,
+            "device_ms": sum(by_kind.values()), "device_ms_by_kind": dict(by_kind),
+            "launches": sum(kind_launches.values()) / calls,
+            "launches_by_kind": {k: c / calls for k, c in kind_launches.items()},
+            "by_stage": by_stage, "peak_added_gib": peak_gib,
+            "sync_debug_call": "no host sync (set_sync_debug_mode('error') raised nothing)",
+            # the function's least bytes: uint8 images and masks in, f32
+            # images and int32 masks out
+            "bound_ms": roofline(5 * n_img + 5 * n_mask, 0)[0],
+            "timed_with": "20 calls per event pair, rotating copies > 2x L2", "card": card}
+        print(json.dumps({"augment_batch": {name: results[name]}}), flush=True)
+    return results
+
+
+def check_clahe_card_vs_cpu(augment, x, clip, tiles):
+    """CLAHE's pieces on the card against the CPU on the same float32 images
+    ``x`` (on the card): LAB within 1e-4; the levels ``round(L * 255 /
+    100)`` equal, or one apart where the CPU's ``L * 255 / 100`` lies within
+    1e-3 of a half level (a one-ulp L decides such a tie; one level moves
+    the tile's histogram, and so its LUT); then, fed the card's levels on
+    both devices, the LUTs equal and the blended L within 1e-4.  Returns
+    the images whose levels differ at a tie."""
+    x = torch.clamp(x, 0.0, 1.0)
+    lab = augment._rgb_to_lab(x)
+    lab_cpu = augment._rgb_to_lab(x.cpu())
+    for got, ref in zip(lab, lab_cpu):
+        if not (got.cpu() - ref).abs().max().item() <= 1e-4:
+            raise AssertionError("LAB on the card differs from the CPU")
+    level = lambda L: torch.clamp(torch.round(L * (255.0 / 100.0)), 0, 255).to(torch.int32)
+    levels, levels_cpu = level(lab[0]), level(lab_cpu[0])
+    off = levels.cpu() != levels_cpu
+    half = lab_cpu[0][off] * (255.0 / 100.0)
+    if not (bool(((levels.cpu() - levels_cpu).abs() <= 1).all())
+            and bool(((half - torch.floor(half) - 0.5).abs() < 1e-3).all())):
+        raise AssertionError("CLAHE levels differ off a tie between the card and the CPU")
+    lut = augment._clahe_lut(levels, clip, tiles)
+    lut_cpu = augment._clahe_lut(levels.cpu(), clip.cpu(), tiles)
+    if not torch.equal(lut.cpu(), lut_cpu):
+        raise AssertionError("CLAHE LUTs differ between the card and the CPU")
+    newl = augment._clahe_apply(levels, lut, tiles)
+    newl_cpu = augment._clahe_apply(levels.cpu(), lut_cpu, tiles)
+    if not (newl.cpu() - newl_cpu).abs().max() <= 1e-4:
+        raise AssertionError("CLAHE blend differs between the card and the CPU")
+    rgb = augment._lab_to_rgb(newl * (100.0 / 255.0), *lab[1:])
+    rgb_cpu = augment._lab_to_rgb(newl.cpu() * (100.0 / 255.0), *(t.cpu() for t in lab[1:]))
+    if not (rgb.cpu() - rgb_cpu).abs().max() <= 1e-4:
+        raise AssertionError("LAB to RGB differs between the card and the CPU")
+    return off.flatten(1).any(1), int(off.sum())
+
+
+def check_augment_card_vs_cpu(augment, ops, host_rng):
+    """Every stage of WEAK and STRONG (float32 pixel math) on the card against
+    the same stage on the CPU, each fed the card's previous output, with the
+    same draws (made on the host, every gate on: both images take every
+    stage).  Tolerances: images 1e-4 after each stage up to colour, 1e-3
+    after HSV (its hue divides by max - min, which is small for greyish
+    pixels, so a 1e-5 input difference can move it by ~1e-4); masks may
+    differ at nearest-neighbour ties of the warp coordinates (one float32
+    ulp apart on the two devices), at most 1e-4 of the pixels.  CLAHE is
+    held piece by piece (``check_clahe_card_vs_cpu``); an image whose CLAHE
+    levels differ at a tie is left out of the colour stage's comparison."""
+    images, masks = (torch.from_numpy(a) for a in train_batches(host_rng, 1, batch=2,
+                                                                 tile=256)[0])
+    result = {}
+    for name in ("WEAK", "STRONG"):
+        cfg = dataclasses.replace(getattr(augment, name), compute_dtype="float32")
+        gen = torch.Generator().manual_seed(SEED)
+        flags = ops.flags_from_abc(*augment._sample_dihedral(gen, 2, cfg))
+        params = augment.sample_params(gen, tuple(images.shape), cfg, has_masks=True)
+        every = lambda d: None if d is None else d._replace(do=torch.ones(2, dtype=torch.bool))
+        host = augment.AugmentDraws(augment.WarpDraws(*(every(d) for d in params.warp)),
+                                    augment.PhotometricDraws(*(every(d) for d in
+                                                               params.photometric)))
+        card = augment.draws_to(host, "cuda")
+        photo = lambda p, stage: getattr(p.photometric, stage)
+        stages = [("warps", lambda x, m, p: augment._warp_stage(x, m, p.warp, cfg), 1e-4),
+                  ("noise", lambda x, m, p: (augment._noise_stage(x, photo(p, "noise"), cfg), m),
+                   1e-4),
+                  ("blur", lambda x, m, p: (augment._blur_stage(x, photo(p, "blur"), cfg), m),
+                   1e-4),
+                  ("colour", lambda x, m, p: (augment._color_stage(x, photo(p, "color"), cfg),
+                                              m), 1e-4),
+                  ("hsv", lambda x, m, p: (augment._hsv_stage(x, photo(p, "hsv"), cfg), m),
+                   1e-3)]
+        x, m = ops.dihedral_normalize(images.cuda(), flags.cuda(), masks.cuda())
+        errors = {}
+        for stage, fn, tol in stages:
+            kept = torch.ones(2, dtype=torch.bool)
+            if stage == "colour":
+                tie, errors["clahe_levels_off_at_ties"] = check_clahe_card_vs_cpu(
+                    augment, x, card.photometric.color.clahe_clip, cfg.clahe_tiles)
+                kept &= ~(tie & (host.photometric.color.choice < 0.25))
+            ref_x, ref_m = fn(x.cpu(), m.cpu(), host)
+            x, m = fn(x, m, card)
+            err = (x.cpu() - ref_x)[kept].abs().max().item() if kept.any() else 0.0
+            off = (m.cpu() != ref_m).float().mean().item()
+            errors[stage] = {"max_abs_err": err, "mask_share_off": off,
+                             "images_compared": int(kept.sum())}
+            if not (err <= tol and off <= 1e-4):
+                raise AssertionError(f"{name} {stage} on the card vs the CPU: {errors[stage]}")
+        result[name] = errors
+    print(json.dumps({"augment_card_vs_cpu": result}), flush=True)
+    return result
 
 
 def check_fused_ce(ops, gen, dtype):
@@ -839,8 +1002,9 @@ def check_fused_ce(ops, gen, dtype):
 
 
 def dihedral_only(augment):
-    """The weak pipeline with every stage that is not ported yet switched off."""
-    return dataclasses.replace(augment.WEAK, **{p: 0.0 for p in augment.UNPORTED_STAGES})
+    """The weak pipeline with every stage after the dihedral one switched off."""
+    return dataclasses.replace(augment.WEAK, p_ssr=0.0, p_distort=0.0, p_noise=0.0,
+                               p_blur=0.0, p_color=0.0, p_hsv=0.0)
 
 
 def train_batches(host_rng, n, batch=TRAIN_BATCH, tile=TILE):
@@ -890,8 +1054,7 @@ def probe_batch(batch: int) -> int:
     model = create_unet("resnet34", classes=CLASSES, seed=SEED, dtype=torch.bfloat16,
                         device="cuda")
     state = TrainState(model, adam(1e-4))
-    step = make_supervised_train_step(model, CLASSES, aug_cfg=dihedral_only(augment),
-                                      fused_ce=True)
+    step = make_supervised_train_step(model, CLASSES, fused_ce=True)          # WEAK
     images, masks = (torch.from_numpy(a).cuda() for a in
                      train_batches(np.random.default_rng(SEED), 1, batch)[0])
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1063,9 +1226,9 @@ def main(argv=None) -> int:
     del model, step, logits, logits32, state_dict, batch_dev
     torch.cuda.empty_cache()
 
-    # 5. the train path: same width, B=32, bf16, dihedral-only augmentation,
-    #    fused CE, Adam; 5 steps from seeded weights and seeded numpy batches
-    cfg = dihedral_only(augment)
+    # 5. the train path: same width, B=32, bf16, the JAX default augmentation
+    #    (WEAK: every stage), fused CE, Adam; 5 steps from seeded weights and
+    #    seeded numpy batches
     model = create_unet("resnet34", classes=CLASSES, seed=SEED, dtype=torch.bfloat16,
                         device="cuda", fused_eval=True)
     n_bn = sum(isinstance(m, BatchNorm) for m in model.modules())
@@ -1089,7 +1252,7 @@ def main(argv=None) -> int:
             m.register_forward_pre_hook(
                 lambda mod, inp: bn_shapes.update([tuple(inp[0].permute(0, 2, 3, 1).shape)]))
             m.register_full_backward_pre_hook(count_dy_copy)
-    make_supervised_train_step(warm, CLASSES, aug_cfg=cfg, fused_ce=True)(
+    make_supervised_train_step(warm, CLASSES, fused_ce=True)(
         TrainState(warm, adam(1e-4)), torch.Generator(device="cuda").manual_seed(SEED + 1),
         *batches[0])
     torch.cuda.synchronize()
@@ -1108,7 +1271,7 @@ def main(argv=None) -> int:
     print(json.dumps({"bn_backward_dy_copies": dy_copy_report, "card": card}), flush=True)
 
     state = TrainState(model, adam(1e-4))
-    train_step = make_supervised_train_step(model, CLASSES, aug_cfg=cfg, fused_ce=True)
+    train_step = make_supervised_train_step(model, CLASSES, fused_ce=True)   # WEAK
     before = {k: v.detach().clone() for k, v in model.state_dict().items()}
     reset_counts(counters)
     step_metrics = []
@@ -1155,10 +1318,32 @@ def main(argv=None) -> int:
         raise AssertionError(f"dihedral_normalize kernels per train step: {census}")
     print(json.dumps({"train": {
         "model": "resnet34 U-Net, 23 classes", "dtype": "bfloat16", "batch": TRAIN_BATCH,
-        "tile": TILE, "augmentation": "dihedral only", "fused_ce": True,
+        "tile": TILE, "augmentation": "WEAK (the default)", "fused_ce": True,
         "optimizer": "adam(1e-4)", "batch_norm_modules": n_bn, "losses": losses,
         "step_ms": step_ms, "tiles_per_s": TRAIN_BATCH / step_ms * 1e3,
         "peak_mem_gib": train_peak_gib, "timed_with": "batches already on the device",
+        "card": card}}), flush=True)
+
+    # the same step with the dihedral-only augmentation, timed the same way,
+    # so that the difference is what the stages after the dihedral one cost
+    dihedral_step = make_supervised_train_step(model, CLASSES, aug_cfg=dihedral_only(augment),
+                                               fused_ce=True)
+    timed_dihedral = lambda: dihedral_step(state, train_gen,
+                                           *dev_batches[next(turn) % TRAIN_STEPS])
+    torch.cuda.reset_peak_memory_stats()
+    dihedral_step_ms = time_ms(timed_dihedral, reps=5, warmup=1)
+    dihedral_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    dihedral_profile = profile_forward(timed_dihedral)
+    print(json.dumps({"train_dihedral_only": {
+        "augmentation": "dihedral only", "step_ms": dihedral_step_ms,
+        "tiles_per_s": TRAIN_BATCH / dihedral_step_ms * 1e3, "peak_mem_gib": dihedral_peak_gib,
+        "device_ms": dihedral_profile.get("device_ms_per_call"),
+        "busy_share": dihedral_profile.get("busy_share"),
+        "weak_minus_dihedral_only_ms": step_ms - dihedral_step_ms,
+        "weak_minus_dihedral_only_device_ms": (
+            train_profile["device_ms_per_call"] - dihedral_profile["device_ms_per_call"]
+            if "by_category_ms" in train_profile and "by_category_ms" in dihedral_profile
+            else "not measured"),
         "card": card}}), flush=True)
 
     # 6. the eval step on the trained model: fused decoder, 2 kernel launches
@@ -1173,7 +1358,7 @@ def main(argv=None) -> int:
     if (not torch.isfinite(eval_metrics["loss"])
             or eval_metrics["hist"].sum().item() != TRAIN_BATCH * TILE * TILE):
         raise AssertionError("eval step metrics are off")
-    del model, state, train_step, dev_batches, step_metrics, eval_metrics
+    del model, state, train_step, dihedral_step, dev_batches, step_metrics, eval_metrics
     torch.cuda.empty_cache()
 
     # 3b. the three training kernels vs their plain versions at the step's shapes
@@ -1193,7 +1378,8 @@ def main(argv=None) -> int:
                                sums_ops.channel_sums_reference(unaligned), rtol=1e-5, atol=1e-4)
     sums_launch_checks = check_sums_launches(sums_ops, gen)
     dihedral_result = check_dihedral(dihedral_ops, host_rng)
-    time_augment_batch(augment, dihedral_ops, host_rng, card)
+    augment_results = time_augment_batch(augment, dihedral_ops, host_rng, card)
+    check_augment_card_vs_cpu(augment, dihedral_ops, host_rng)
     ce_results = {dt: check_fused_ce(ce_ops, gen, dt) for dt in (torch.float32, torch.bfloat16)}
 
     # 7. one float32 train step on the card (kernels) against the same step on
@@ -1202,9 +1388,17 @@ def main(argv=None) -> int:
     #    near-ties); all gradients together 5e-2 relative in L2 and the head's
     #    kernel 1e-3 of its largest entry -- through the whole network single
     #    ReLU units flip under float32 noise (tests/test_torch_train_step.py).
+    #    The augmentation is WEAK in float32; a CUDA and a CPU generator draw
+    #    different numbers, so the draws are made once on the host and given
+    #    to both (these seeded draws blur and HSV-shift the first image).
+    #    Every stage on both devices is held in ``check_augment_card_vs_cpu``.
     small = train_batches(host_rng, 1, batch=2, tile=256)[0]
-    abc = tuple(torch.tensor(v) for v in ([True, False], [False, True], [True, True]))
-    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    cfg32 = dataclasses.replace(augment.WEAK, compute_dtype="float32")
+    host_gen = torch.Generator().manual_seed(SEED)
+    abc = augment._sample_dihedral(host_gen, 2, cfg32)
+    params = augment.sample_params(host_gen, small[0].shape, cfg32, has_masks=True)
+    if not any(d.do.any() for d in (*params.warp, *params.photometric) if d is not None):
+        raise AssertionError("the f32 step's draws select no augmentation stage")
     runs = {}
     for device in ("cuda", "cpu"):
         m32 = create_unet("resnet34", classes=CLASSES, seed=SEED, dtype=torch.float32,
@@ -1212,7 +1406,7 @@ def main(argv=None) -> int:
         s32 = TrainState(m32, adam(1e-4))
         reset_counts(counters)
         _, met = make_supervised_train_step(m32, CLASSES, aug_cfg=cfg32, fused_ce=True)(
-            s32, None, *small, abc=abc)
+            s32, None, *small, abc=abc, params=params)
         if device == "cuda":
             torch.cuda.synchronize()
         if (sum(read_counts(counters).values()) > 0) != (device == "cuda"):

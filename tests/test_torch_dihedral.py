@@ -33,7 +33,9 @@ from uda_aerial_semantic_segmentation_research_tpu_torch.ops.dihedral import (
 ALL_FLAGS = np.arange(8, dtype=np.int32)
 MEAN = np.asarray((0.485, 0.456, 0.406), np.float32)
 STD = np.asarray((0.229, 0.224, 0.225), np.float32)
-DIHEDRAL_ONLY = {p: 0.0 for p in augment.UNPORTED_STAGES}
+# every stage after the dihedral one switched off
+DIHEDRAL_ONLY = dict(p_ssr=0.0, p_distort=0.0, p_noise=0.0, p_blur=0.0, p_color=0.0,
+                     p_hsv=0.0)
 
 
 def _batch(size=16, seed=0, b=8):
@@ -272,14 +274,61 @@ def test_augment_batch_draws_from_the_callers_generator():
     assert torch.equal(xf, x32)
 
 
+def _blocks(b=8, size=32, block=8):
+    """Masks of 8x8 blocks of labels 0..22 and images whose three channels
+    encode the label (8 * label), so that a pixel's image value names its
+    mask label."""
+    rng = np.random.default_rng(4)
+    labels = rng.integers(0, 23, (b, size // block, size // block))
+    masks = np.repeat(np.repeat(labels, block, 1), block, 2).astype(np.uint8)
+    images = np.repeat((8 * masks)[..., None], 3, -1).astype(np.uint8)
+    return torch.from_numpy(images), torch.from_numpy(masks)
+
+
 @pytest.mark.parametrize("case", ["WEAK", "STRONG", "p_ssr", "p_distort", "p_noise",
                                   "p_blur", "p_color", "p_hsv"])
 def test_augment_batch_raises_for_a_stage_that_is_not_ported(case):
-    images, masks = (torch.from_numpy(a) for a in _batch(size=8))
+    """Every stage runs (the name is kept from when the stages after the
+    dihedral one raised): the generator's draws are replayable, the stage
+    changes exactly the images its gates select (against the dihedral-only
+    result with the same elements), and images and masks stay aligned (the
+    label-encoding images, sent through the same geometric draws, decode
+    to the returned masks)."""
+    images, masks = _blocks()
     cfg = (getattr(augment, case) if case in ("WEAK", "STRONG")
-           else dataclasses.replace(augment.NONE, **{case: 0.1}))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        augment.augment_batch(torch.Generator().manual_seed(0), images, masks, cfg=cfg)
+           else dataclasses.replace(augment.NONE, **{case: 0.5}))
+    n, shape = images.shape[0], tuple(images.shape)
+    x, m = augment.augment_batch(torch.Generator().manual_seed(0), images, masks, cfg=cfg,
+                                 normalize=False)
+    replay = torch.Generator().manual_seed(0)
+    abc = (augment._sample_dihedral(replay, n, cfg) if cfg.p_rot90 > 0
+           else tuple(torch.zeros(n, dtype=torch.bool) for _ in range(3)))
+    params = augment.sample_params(replay, shape, cfg, has_masks=True)
+    x2, m2 = augment.augment_batch(None, images, masks, cfg=cfg, normalize=False, abc=abc,
+                                   params=params)
+    assert torch.equal(x, x2) and torch.equal(m, m2)
+
+    gates = [d.do for d in (*params.warp, *params.photometric) if d is not None]
+    selected = torch.stack(gates).any(0)
+    assert selected.any()
+    plain = dataclasses.replace(cfg, **DIHEDRAL_ONLY)
+    base, base_m = augment.augment_batch(None, images, masks, cfg=plain, normalize=False,
+                                         abc=abc)
+    changed = (x != base).flatten(1).any(1)
+    assert changed[selected].any() and not changed[~selected].any()
+    warped = torch.zeros(n, dtype=torch.bool)
+    for d in params.warp:
+        if d is not None:
+            warped |= d.do
+    assert not (m != base_m).flatten(1).any(1)[~warped].any()
+
+    geometric = dataclasses.replace(cfg, p_noise=0.0, p_blur=0.0, p_color=0.0, p_hsv=0.0,
+                                    compute_dtype="float32")
+    xe, me = augment.augment_batch(None, images, masks, cfg=geometric, normalize=False,
+                                   abc=abc, params=params)
+    assert torch.equal(me, m)
+    decoded = torch.round(xe[..., 0] * 255.0 / 8.0).to(torch.int32)
+    assert (decoded == me).float().mean() > 0.9
 
 
 def test_augment_batch_rejects_non_square_tiles_and_a_missing_generator():

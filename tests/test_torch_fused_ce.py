@@ -85,6 +85,33 @@ def test_softmax_cross_entropy_label_outside_the_classes_costs_nothing():
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=TOL, atol=TOL)
 
 
+@pytest.mark.parametrize("ignore", [255, -1, -9])
+def test_weighted_cross_entropy_indexes_the_weights_like_jax(ignore):
+    """A label outside [0, C) with class weights: JAX's ``w[labels]`` counts
+    a negative label from the end and clamps the index, so the pixel adds a
+    zero loss and a weight to the divisor; the port does the same instead
+    of raising.  Pinned: C=5, one label 255, JAX gives 1.9137."""
+    import jax.numpy as jnp
+
+    from uda_aerial_semantic_segmentation_research_tpu.ops.losses import (
+        softmax_cross_entropy as jax_ce,
+    )
+
+    rng = np.random.default_rng(0)
+    logits = rng.normal(size=(2, 4, 4, 5)).astype(np.float32)
+    labels = rng.integers(0, 5, (2, 4, 4)).astype(np.int32)
+    labels[0, 0, 0] = ignore
+    w = np.arange(1, 6).astype(np.float32)
+    ref = float(jax_ce(jnp.asarray(logits), jnp.asarray(labels), w))
+    got = softmax_cross_entropy(torch.from_numpy(logits), torch.from_numpy(labels), w).item()
+    np.testing.assert_allclose(got, ref, rtol=TOL, atol=TOL)
+    if ignore == 255:
+        np.testing.assert_allclose(got, 1.9137, atol=5e-5)
+    per_pixel = softmax_cross_entropy(torch.from_numpy(logits), torch.from_numpy(labels), w,
+                                      reduction="none")
+    assert per_pixel[0, 0, 0] == 0
+
+
 def test_softmax_cross_entropy_accumulates_bf16_logits_in_f32():
     logits, labels = _case()
     xb = torch.from_numpy(logits).bfloat16()

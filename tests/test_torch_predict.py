@@ -8,6 +8,8 @@ top-2 margin is above 1e-3 (a closer call may flip within the
 tolerance).  Also the normalization and tiling copies.
 """
 
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -36,11 +38,17 @@ from uda_aerial_semantic_segmentation_research_tpu_torch.inference.predict impor
     predict_raster,
 )
 from uda_aerial_semantic_segmentation_research_tpu_torch.ops.augment import (
+    NONE,
     denormalize_images,
     normalize_images,
 )
+from uda_aerial_semantic_segmentation_research_tpu_torch.training.state import (
+    TrainState,
+    adam,
+)
 from uda_aerial_semantic_segmentation_research_tpu_torch.training.steps import (
     make_predict_step,
+    make_supervised_train_step,
 )
 
 TOL = 2e-4
@@ -85,6 +93,30 @@ def test_predict_batch_matches_jax(models, layout):
     pred = predict_batch(model, x, device="cpu")
     assert pred.shape == ref.shape and pred.dtype == np.int32
     _assert_labels_agree(pred, logits)
+
+
+def test_predict_batch_runs_the_model_in_eval_mode_after_a_train_step(models):
+    """A train step leaves the model in train mode; ``predict_batch`` still
+    predicts with the running BatchNorm statistics (as the JAX package's
+    ``ModelBundle`` always does) and leaves them unchanged."""
+    model = copy.deepcopy(models[1])
+    masks = np.random.default_rng(31).integers(0, CLASSES, (2, SIZE, SIZE)).astype(np.uint8)
+    step = make_supervised_train_step(model, CLASSES, aug_cfg=NONE)
+    step(TrainState(model, adam(1e-3)), None, images(30), masks)
+    assert model.training
+    buffers = {k: v.clone() for k, v in model.named_buffers()}
+    x = images(32)
+    pred = predict_batch(model, x, device="cpu")
+    assert not model.training
+    for k, v in model.named_buffers():
+        assert torch.equal(v, buffers[k]), k
+    eval_labels = make_predict_step(model)(x).argmax(-1).to(torch.int32).numpy()
+    np.testing.assert_array_equal(pred, eval_labels)
+    # what train mode would have predicted: other labels (batch statistics)
+    model.train()
+    with torch.no_grad():
+        train_labels = model(normalize_images(torch.from_numpy(x))).argmax(-1).numpy()
+    assert (train_labels != eval_labels).mean() > 0.05
 
 
 def test_predict_raster_matches_jax(models):

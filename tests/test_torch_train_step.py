@@ -3,8 +3,11 @@ optimizer state against the JAX package (CPU, float32).
 
 Identical weights (numpy, seeded; through ``from_jax_state_dict``) and
 identical uint8 batches go through both packages; where the augmentation
-draws, the port is fed the ``(a, b, c)`` that the JAX step draws
-(``_sample_dihedral(split(fold_in(key, step), 3)[0], n, cfg)``).  Size:
+draws, the port is fed the draws that the JAX step makes from
+``fold_in(key, step)`` (``tests/torch_augment_draws.py``: the dihedral
+elements and every later stage's parameters).  The ``weak`` cases build
+both steps with the default augmentation, ``WEAK`` (all stages, bfloat16
+pixel math; ``_run`` says what their gradients are held against).  Size:
 resnet18, 64 px, 7 classes, batch 2.
 
 Tolerances, and why:
@@ -50,6 +53,7 @@ import torch
 from flax.traverse_util import flatten_dict
 
 from tests.test_torch_models import jax_variables, random_variables
+from tests.torch_augment_draws import augment_draws
 from uda_aerial_semantic_segmentation_research_tpu.models.unet import Unet as JaxUnet
 from uda_aerial_semantic_segmentation_research_tpu.ops import augment as jax_augment
 from uda_aerial_semantic_segmentation_research_tpu.ops.losses import (
@@ -93,12 +97,16 @@ CASES = {
     "dihedral_fused": ("dihedral", True, None),
     "dihedral_clip": ("dihedral", False, CLIP),
     "dihedral_fused_clip": ("dihedral", True, CLIP),
+    "weak": ("weak", False, None),
+    "weak_fused_clip": ("weak", True, CLIP),
 }
 
 
 def _configs(kind):
     if kind == "none":
         return jax_augment.NONE, augment.NONE
+    if kind == "weak":
+        return jax_augment.WEAK, augment.WEAK
     return (dataclasses.replace(jax_augment.WEAK, compute_dtype="float32", **NO_STAGES),
             dataclasses.replace(augment.WEAK, compute_dtype="float32", **NO_STAGES))
 
@@ -129,26 +137,47 @@ def _port_model(flat, fused_eval=False):
     return model
 
 
+def _jax_state(flat, tx):
+    variables = jax_variables(flat)
+    return jax_state.TrainState(step=jnp.zeros((), jnp.int32), params=variables["params"],
+                                batch_stats=variables["batch_stats"],
+                                opt_state=tx.init(variables["params"]), tx=tx)
+
+
 @functools.cache
 def _run(name):
     """Two steps of both packages; per step the metrics, the gradients
     (the optimizer's input: clipped where the case clips), the updated
-    parameters and the BatchNorm buffers."""
+    parameters and the BatchNorm buffers.
+
+    The metrics are the JAX step's with its own augmentation.  For the
+    ``weak`` kind (the default WEAK, bfloat16 pixel math) the two
+    augmentations differ in a few values by one bfloat16 rounding (a warp
+    coordinate one float32 ulp apart: ``tests/test_torch_augment_pipeline.py``),
+    which at this batch of 2 moves the gradients by ~10% in relative L2
+    (ReLU units flip in the 2x2 deepest stage).  So there the gradients,
+    parameters and buffers are held against a second JAX chain: the JAX
+    step with ``aug_cfg=NONE`` on the port's augmented batch (as float32 in
+    [0, 1]; NONE only normalizes it, as the port's step does), and the two
+    augmented batches against each other."""
     kind, fused, clip = CASES[name]
     jcfg, pcfg = _configs(kind)
     module, flat = _weights()
-    variables = jax_variables(flat)
     tx = jax_state.adam(LR, clip)
-    jstate = jax_state.TrainState(step=jnp.zeros((), jnp.int32), params=variables["params"],
-                                  batch_stats=variables["batch_stats"],
-                                  opt_state=tx.init(variables["params"]), tx=tx)
-    jstep = jax_steps.make_supervised_train_step(module, CLASSES, aug_cfg=jcfg,
-                                                 fused_ce=fused)
+    jstate = _jax_state(flat, tx)
+    # the weak cases take the factories' default augmentation
+    aug = {} if kind == "weak" else {"aug_cfg": jcfg}
+    jstep = jax_steps.make_supervised_train_step(module, CLASSES, fused_ce=fused, **aug)
+    on_port_batch = kind == "weak"
+    if on_port_batch:
+        ref_state = _jax_state(flat, tx)
+        ref_step = jax_steps.make_supervised_train_step(module, CLASSES, fused_ce=fused,
+                                                        aug_cfg=jax_augment.NONE)
     ce = jax_fused_ce if fused else jax_ce
 
-    @jax.jit
-    def jgrads(params, batch_stats, key, images, masks):
-        x, m = jax_augment.augment_batch(key, images, masks, cfg=jcfg)
+    @functools.partial(jax.jit, static_argnames="cfg")
+    def jgrads(params, batch_stats, key, images, masks, cfg):
+        x, m = jax_augment.augment_batch(key, images, masks, cfg=cfg)
 
         def loss_fn(p):
             logits, _ = jax_steps._apply_train(module, p, batch_stats, x)
@@ -163,29 +192,49 @@ def _run(name):
 
     model = _port_model(flat)
     pstate = TrainState(model, adam(LR, clip))
-    pstep = make_supervised_train_step(model, CLASSES, aug_cfg=pcfg, fused_ce=fused)
+    aug = {} if kind == "weak" else {"aug_cfg": pcfg}
+    pstep = make_supervised_train_step(model, CLASSES, fused_ce=fused, **aug)
+    assert kind != "weak" or (jcfg == jax_steps.make_supervised_train_step.__defaults__[0]
+                              and pcfg == make_supervised_train_step.__defaults__[0])
 
     key = jax.random.key(5)
     out = []
     for i, (images, masks) in enumerate(_batches()):
         step_key = jax.random.fold_in(key, i)
-        abc = None
-        if kind == "dihedral":
-            abc = tuple(torch.from_numpy(np.array(t)) for t in jax_augment._sample_dihedral(
-                jax.random.split(step_key, 3)[0], BATCH, jcfg))
-        jg, norm, ambiguous = jgrads(jstate.params, jstate.batch_stats, step_key,
-                                     jnp.asarray(images), jnp.asarray(masks))
+        abc = params = None
+        if kind != "none":
+            abc, params = augment_draws(step_key, images.shape, jcfg, has_masks=True)
+        extra = {}
+        _, _, ambiguous = jgrads(jstate.params, jstate.batch_stats, step_key,
+                                 jnp.asarray(images), jnp.asarray(masks), cfg=jcfg)
+        if on_port_batch:
+            x_aug, m_aug = augment.augment_batch(None, torch.from_numpy(images),
+                                                 torch.from_numpy(masks), cfg=pcfg, abc=abc,
+                                                 params=params, normalize=False)
+            jx_aug, jm_aug = jax_augment.augment_batch(step_key, jnp.asarray(images),
+                                                       jnp.asarray(masks), cfg=jcfg,
+                                                       normalize=False)
+            extra = dict(aug_diff=np.abs(x_aug.numpy() - np.asarray(jx_aug)),
+                         masks_equal=np.array_equal(m_aug.numpy(), np.asarray(jm_aug)))
+            ref_batch = (jnp.asarray(x_aug.numpy()), jnp.asarray(m_aug.numpy()))
+            jg, norm, _ = jgrads(ref_state.params, ref_state.batch_stats, step_key,
+                                 *ref_batch, cfg=jax_augment.NONE)
+            ref_state, _ = ref_step(ref_state, key, *ref_batch)
+        else:
+            jg, norm, _ = jgrads(jstate.params, jstate.batch_stats, step_key,
+                                 jnp.asarray(images), jnp.asarray(masks), cfg=jcfg)
         jg = _flat({"params": jg})
         assert int(jstate.step) == pstate.step == i
         jstate, jm = jstep(jstate, key, jnp.asarray(images), jnp.asarray(masks))
-        pstate, pm = pstep(pstate, None, images.copy(), masks.copy(), abc=abc)
+        pstate, pm = pstep(pstate, None, images.copy(), masks.copy(), abc=abc, params=params)
+        final = ref_state if on_port_batch else jstate
         out.append(dict(
             jax_metrics={k: np.array(v) for k, v in jm.items()},
             port_metrics={k: v.numpy() for k, v in pm.items()},
             jax_grads=jg, port_grads=to_jax_state_dict(model, grads=True),
             grad_norm=float(norm), ambiguous=int(ambiguous),
-            jax_state=_flat({"params": jstate.params, "batch_stats": jstate.batch_stats}),
-            port_state=to_jax_state_dict(model)))
+            jax_state=_flat({"params": final.params, "batch_stats": final.batch_stats}),
+            port_state=to_jax_state_dict(model), **extra))
     return out
 
 
@@ -206,6 +255,10 @@ def test_train_step_metrics_match_jax(name):
         for k in ("iou", "accuracy", "per_class_iou"):
             np.testing.assert_allclose(pm[k], jm[k], rtol=SCALAR_TOL,
                                        atol=SCALAR_TOL + slack, err_msg=k)
+        if "aug_diff" in step:      # the two augmentations: tests/test_torch_augment_pipeline.py
+            assert step["masks_equal"]
+            assert step["aug_diff"].max() <= 2.0 ** -4
+            assert (step["aug_diff"] > 0).mean() <= 0.01
 
 
 def _all(tensors, keys):
@@ -301,8 +354,12 @@ def test_train_step_factory_validates_like_jax():
                                    fused_ce=True)
     with pytest.raises(NotImplementedError, match="dice"):
         make_supervised_train_step(model, CLASSES, aug_cfg=augment.NONE, seg_loss="dice")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        make_supervised_train_step(model, CLASSES)                     # WEAK by default
+    # WEAK by default, as in the JAX package: every stage runs on the CPU
+    weak = make_supervised_train_step(model, CLASSES)
+    weak_state, metrics = weak(TrainState(model, adam(LR)), torch.Generator().manual_seed(0),
+                               *_batches()[0])
+    assert weak_state.step == 1 and np.isfinite(metrics["loss"].item())
+    assert metrics["hist"].sum().item() == BATCH * SIZE * SIZE
     with pytest.raises(NotImplementedError, match="dice"):
         make_eval_step(model, CLASSES, seg_loss="dice")
     with pytest.raises(ValueError, match="seg_loss"):

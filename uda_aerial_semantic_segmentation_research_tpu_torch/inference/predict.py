@@ -40,9 +40,12 @@ def predict_batch(model, images, device=None) -> np.ndarray:
     """Batch argmax prediction.
 
     ``images``: (B, H, W, C) raw uint8 or normalized float NHWC (CHW
-    accepted).  Returns int32 label maps (B, H, W) as numpy.
+    accepted).  Returns int32 label maps (B, H, W) as numpy.  The model
+    runs in eval mode (running BatchNorm statistics, left unchanged), as
+    the JAX package's ``ModelBundle`` always does.
     """
     dev = _check_model_device(model, device)
+    model.eval()
     arr = np.asarray(images)
     if arr.ndim == 4 and arr.shape[1] == 3 and arr.shape[-1] != 3:
         arr = np.transpose(arr, (0, 2, 3, 1))

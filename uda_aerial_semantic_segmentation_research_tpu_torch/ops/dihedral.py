@@ -64,11 +64,20 @@ def apply_dihedral(x, m, a, b, c):
     return x, m
 
 
-def imagenet_stats(device):
-    """(mean, std) of the ImageNet normalization as float32 (C,) tensors."""
-    mean = torch.tensor(Config.NORMALIZE_MEAN, dtype=torch.float32, device=device)
-    std = torch.tensor(Config.NORMALIZE_STD, dtype=torch.float32, device=device)
-    return mean, std
+@functools.lru_cache(maxsize=None)
+def imagenet_stats(device: torch.device):
+    """(mean, std) of the ImageNet normalization as float32 (C,) tensors on
+    ``device``, made there by fills (no copy from the host, so no wait on
+    it) once per device, as normal tensors even when first asked for under
+    ``inference_mode``; callers only read them."""
+    def const(values):
+        t = torch.empty(len(values), dtype=torch.float32, device=device)
+        for i, v in enumerate(values):
+            t[i] = v
+        return t
+
+    with torch.inference_mode(False), torch.no_grad():
+        return const(Config.NORMALIZE_MEAN), const(Config.NORMALIZE_STD)
 
 
 def dequantize(images):

@@ -31,7 +31,8 @@ def softmax_cross_entropy(logits, labels, class_weights=None, reduction="mean"):
     picked = logp.gather(-1, labels.clamp(0, c - 1).unsqueeze(-1)).squeeze(-1)
     nll = -picked * valid.to(logp.dtype)
     if class_weights is not None:
-        w = torch.as_tensor(class_weights, dtype=logp.dtype, device=logits.device)[labels]
+        idx = torch.where(labels < 0, labels + c, labels).clamp(0, c - 1)
+        w = torch.as_tensor(class_weights, dtype=logp.dtype, device=logits.device)[idx]
         nll = nll * w
         if reduction == "mean":
             return nll.sum() / torch.clamp_min(w.sum(), 1e-12)

@@ -23,7 +23,6 @@ from uda_aerial_semantic_segmentation_research_tpu_torch.ops.augment import (
     AugmentConfig,
     augment_batch,
     normalize_images,
-    require_ported,
 )
 from uda_aerial_semantic_segmentation_research_tpu_torch.ops.fused_ce import (
     fused_cross_entropy,
@@ -66,13 +65,14 @@ def make_supervised_train_step(model: torch.nn.Module, num_classes: int,
                                aug_cfg: AugmentConfig = WEAK,
                                class_weights=None, fused_ce: bool = False,
                                seg_loss: str = "ce"):
-    """``step(state, generator, images, masks, abc=None) -> (state, metrics)``.
+    """``step(state, generator, images, masks, abc=None, params=None) -> (state, metrics)``.
 
     ``images`` uint8 NHWC, ``masks`` uint8/int NHW (numpy arrays or
     tensors; moved to the model's device).  One step: augmentation
-    (``augment_batch``: dihedral elements drawn from ``generator``, a
-    ``torch.Generator`` on the model's device that the caller owns, or
-    given as ``abc``), train-mode forward, loss, backward, Adam update of
+    (``augment_batch`` with ``aug_cfg``, ``WEAK`` by default as in the JAX
+    package: its draws come from ``generator``, a ``torch.Generator`` on the
+    model's device that the caller owns, or are given as ``abc`` and
+    ``params``), train-mode forward, loss, backward, Adam update of
     ``state`` (a ``TrainState`` over ``model``) in place, metrics.  Metrics:
     ``loss``, ``iou``, ``accuracy``, ``per_class_iou``, ``hist``, all
     device tensors.  After a step the parameters' ``.grad`` hold that
@@ -85,7 +85,6 @@ def make_supervised_train_step(model: torch.nn.Module, num_classes: int,
 
     ``seg_loss``: ``"ce"``; ``"dice"`` (the GRL stack's phase-1 criterion)
     raises ``NotImplementedError`` until ``SMPDiceLoss`` is ported.
-    ``aug_cfg`` must ask only for ported stages (``ops.augment``).
     """
     _check_seg_loss(seg_loss)
     if fused_ce and class_weights is not None:
@@ -95,21 +94,21 @@ def make_supervised_train_step(model: torch.nn.Module, num_classes: int,
             raise ValueError(
                 "seg_loss='dice' supports neither fused_ce nor class_weights")
         raise NotImplementedError("seg_loss='dice' is not ported yet (SMPDiceLoss)")
-    require_ported(aug_cfg)
     if fused_ce:
         ce = fused_cross_entropy
     else:
         def ce(logits, m):
             return softmax_cross_entropy(logits, m, class_weights)
 
-    def step(state, generator, images, masks, abc=None):
+    def step(state, generator, images, masks, abc=None, params=None):
         if state.model is not model:
             raise ValueError("the state belongs to another model than the step")
         device = model_device(model)
         images = torch.as_tensor(images, device=device)
         masks = torch.as_tensor(masks, device=device)
         with torch.no_grad():
-            x, m = augment_batch(generator, images, masks, cfg=aug_cfg, abc=abc)
+            x, m = augment_batch(generator, images, masks, cfg=aug_cfg, abc=abc,
+                                 params=params)
         model.train()
         state.optimizer.zero_grad(set_to_none=True)
         logits = model(x)
