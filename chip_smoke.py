@@ -72,8 +72,30 @@
    step on the card (kernels) against the same step on a CPU copy of the
    model (plain versions), WEAK in float32 with the same seeded draws
    (made once on the host);
-8. prints one JSON line of kernel results, the card line again, and last
+8. prints one JSON line of kernel results (launches summed over the main
+   paths of 4, 5, 6 and 9), the card line again, and last
    ``{"ok": true, "device": {...}}``.
+9. (after 7, before 8 prints; in a spawned process of its own, whose
+   launch counts 8 adds in) drives the phase-1 trainer,
+   ``SegmentationTrainer.train``, for 2 epochs on the same model width with
+   the trainer's own step (``WEAK``, plain CE, ``adam(1e-4)``): an in-memory dataset of 80 seeded 512 px
+   tiles with the ``load_raw`` contract, ``random_split`` 64 / 16, a
+   ``WeightedRandomSampler`` from ``class_balance``, ``DataLoader``s at
+   B=32 (2 worker threads), logs and checkpoints in a temporary directory,
+   the early stopper's ``min_epochs`` lowered to 1 so that the run saves a
+   best model.  Checks, per train step, 46 ``channel_sums``, 46
+   ``channel_dual_sums``, 1 ``dihedral_normalize`` and 0 other launches
+   (and none outside the steps); uint8 images and masks on the card; in the
+   last epoch's profile, H2D copies of exactly the batches' bytes, pinned,
+   on a stream other than the compute stream; the best checkpoint reloaded
+   through ``from_jax_state_dict`` gives bit-identical logits; the event
+   file's CRCs and the JAX trainer's tags.  Prints a ``trainer`` line:
+   ``StepTimer`` p50 / p95 and tiles/s, the bare step time, H2D ms per
+   batch and its overlapped share, the device busy share of the last epoch,
+   validation ms, the host ms of each figure-logging batch, checkpoint bytes
+   and write ms, host syncs per train step, peak memory, and which of
+   cv2 / PIL / pandas / tqdm / matplotlib / seaborn / sklearn / tensorboard
+   / g++ / libjpeg / libpng the machine has.
 
 Any failed check raises and the script exits non-zero; without a CUDA
 device it exits non-zero before printing any result.  It imports
@@ -89,9 +111,12 @@ import dataclasses
 import itertools
 import json
 import math
+import os
+import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1073,6 +1098,366 @@ def probe_batch(batch: int) -> int:
     return 0
 
 
+# the trainer phase: an in-memory dataset of seeded 512 px tiles, split 64 / 16
+TRAINER_TILES, TRAINER_TRAIN, TRAINER_EPOCHS = 80, 64, 2
+# what the JAX trainer writes as scalars (train / validate / early stopping)
+TRAINER_SCALAR_TAGS = (
+    ["train/loss", "train/iou", "train/accuracy", "train/learning_rate",
+     "perf/steps_per_sec", "perf/tiles_per_sec", "perf/step_ms_p50",
+     "val/loss", "val/iou", "val/accuracy", "val/iou_epoch",
+     "early_stopping/score", "early_stopping/counter"]
+    + [f"train/iou_class_{c}" for c in range(CLASSES)])
+TRAINER_IMAGE_TAGS = [f"{p}/{k}" for p in ("train", "val")
+                      for k in ("image", "ground_truth", "prediction", "overlay",
+                                "confusion_matrix", "roc_curves", "pr_curves")]
+# installation facts printed with the trainer line: the modules the JAX
+# trainer path imports, and the toolchain the native decoder needs
+INSTALL_MODULES = ("cv2", "PIL", "pandas", "tqdm", "matplotlib", "seaborn", "sklearn",
+                   "tensorboard", "triton", "jax")
+INSTALL_FILES = ("/usr/include/jpeglib.h", "/usr/include/png.h")
+
+
+class InMemoryTiles:
+    """Seeded uint8 tiles and int32 masks in host memory, with the
+    ``load_raw`` contract of ``DroneDataset`` (the card's machine has no
+    image decoder; file decoding is held against the JAX package on the
+    CPU, in tests/test_torch_data.py)."""
+
+    def __init__(self, images, masks):
+        self.images, self.masks = images, masks
+
+    def __len__(self):
+        return len(self.images)
+
+    def load_raw(self, idx):
+        return self.images[idx], self.masks[idx]
+
+    __getitem__ = load_raw
+
+
+def installation() -> dict:
+    """Which of the JAX trainer path's imports and of the native decoder's
+    toolchain this machine has, and whether the native decoder builds."""
+    import importlib.util
+    import shutil
+
+    from uda_aerial_semantic_segmentation_research_tpu_torch.data import native
+
+    return {"modules": {m: importlib.util.find_spec(m) is not None for m in INSTALL_MODULES},
+            "g++": shutil.which("g++") is not None,
+            "headers": {f: os.path.exists(f) for f in INSTALL_FILES},
+            "native_decoder_builds": native.available()}
+
+
+def trace_events(prof):
+    """The device events of a profile as dicts (name, cat, stream, ts, dur,
+    bytes), read from its Chrome trace."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            raw = json.load(f)
+    events = raw["traceEvents"] if isinstance(raw, dict) else raw
+    out = []
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            args = e.get("args", {})
+            out.append({"name": e["name"], "cat": e["cat"], "stream": args.get("stream"),
+                        "ts": float(e["ts"]), "dur": float(e["dur"]),
+                        "bytes": args.get("bytes")})
+    return out
+
+
+def union_us(spans) -> float:
+    total, cur = 0.0, None
+    for start, end in sorted(spans):
+        if cur is None or start > cur[1]:
+            if cur is not None:
+                total += cur[1] - cur[0]
+            cur = [start, end]
+        else:
+            cur[1] = max(cur[1], end)
+    return total + (cur[1] - cur[0] if cur else 0.0)
+
+
+def overlap_us(span, spans) -> float:
+    """Time of ``span`` covered by the union of ``spans``."""
+    start, end = span
+    return union_us([(max(s, start), min(e, end)) for s, e in spans
+                     if e > start and s < end])
+
+
+def drive_trainer(counters, card, host_rng) -> dict:
+    """Phase 9: ``SegmentationTrainer.train`` on the card (see main)."""
+    import warnings
+
+    from uda_aerial_semantic_segmentation_research_tpu_torch.config import Config
+    from uda_aerial_semantic_segmentation_research_tpu_torch.data.dataset import (
+        WeightedRandomSampler,
+        class_balance,
+        random_split,
+    )
+    from uda_aerial_semantic_segmentation_research_tpu_torch.data.loader import DataLoader
+    from uda_aerial_semantic_segmentation_research_tpu_torch.models import (
+        create_model,
+        from_jax_state_dict,
+    )
+    from uda_aerial_semantic_segmentation_research_tpu_torch.training import train as train_mod
+    from uda_aerial_semantic_segmentation_research_tpu_torch.training.steps import (
+        make_predict_step,
+    )
+    from uda_aerial_semantic_segmentation_research_tpu_torch.utils.checkpoint import (
+        load_checkpoint,
+    )
+    from uda_aerial_semantic_segmentation_research_tpu_torch.visualization.tensorboard_logger import (
+        read_events,
+    )
+
+    install = installation()
+    images = host_rng.integers(0, 256, (TRAINER_TILES, TILE, TILE, 3), dtype=np.uint8)
+    masks = host_rng.integers(0, CLASSES, (TRAINER_TILES, TILE, TILE)).astype(np.int32)
+    dataset = InMemoryTiles(images, masks)
+    counts = [np.bincount(m.reshape(-1), minlength=CLASSES) for m in masks]
+    _, weights = class_balance([{c: int(n[c]) for c in np.nonzero(n)[0]} for n in counts],
+                               [m.size for m in masks])
+    train_ds, val_ds = random_split(dataset, [TRAINER_TRAIN, TRAINER_TILES - TRAINER_TRAIN],
+                                    seed=SEED)
+    w = weights[train_ds.indices]
+    sampler = WeightedRandomSampler(w / w.sum(), num_samples=len(w))
+    train_loader = DataLoader(train_ds, batch_size=TRAIN_BATCH, sampler=sampler,
+                              num_workers=Config.NUM_WORKERS)
+    val_loader = DataLoader(val_ds, batch_size=TRAIN_BATCH)
+    steps_per_epoch = len(train_loader)
+
+    model = create_model("Unet", "resnet34", encoder_weights=None, classes=CLASSES,
+                         seed=SEED, dtype=torch.bfloat16, device="cuda")
+    probe = torch.from_numpy(images[-2:]).cuda()          # two validation tiles
+
+    class EarlyStoppingFromEpochOne(train_mod.EarlyStopping):
+        """The trainer's early stopper, with min_epochs=1 so that a 2-epoch
+        run selects and saves a best model (the trainer keeps 10)."""
+
+        def __init__(self, **kw):
+            super().__init__(**{**kw, "min_epochs": 1})
+
+    saved, per_step, batch_kinds, figure_ms, val_ms, epoch_times = [], [], [], [], [], []
+    record = {}
+    real_save, real_early = train_mod.save_checkpoint, train_mod.EarlyStopping
+    with tempfile.TemporaryDirectory() as tmp:
+        old_dirs = Config.LOGS_DIR, Config.CHECKPOINTS_DIR
+        Config.LOGS_DIR, Config.CHECKPOINTS_DIR = os.path.join(tmp, "logs"), os.path.join(tmp, "ckpt")
+        trainer = train_mod.SegmentationTrainer(model, device="cuda")
+
+        def save_and_snapshot(obj, path):
+            t0 = time.perf_counter()
+            real_save(obj, path)
+            write_ms = (time.perf_counter() - t0) * 1e3
+            saved.append({"path": str(path), "epoch": obj["epoch"], "write_ms": write_ms,
+                          "bytes": os.path.getsize(path),
+                          "logits": make_predict_step(trainer.model)(probe).clone()})
+
+        trainer._build_steps()
+        train_step, log_figures = trainer._train_step, trainer._log_figures
+        validate, train_epoch = trainer.validate, trainer.train_epoch
+
+        def counted_step(state, gen, imgs, msks):
+            before = read_counts(counters)
+            out = train_step(state, gen, imgs, msks)
+            after = read_counts(counters)
+            per_step.append({k: after[k] - before[k] for k in after})
+            batch_kinds.append({"images": str(imgs.dtype), "masks": str(msks.dtype),
+                                "on_card": imgs.is_cuda and msks.is_cuda})
+            return out
+
+        def timed_figures(*args, **kw):
+            caught = record.get("caught")                  # the observed epoch's
+            n0, t0 = len(caught or ()), time.perf_counter()
+            log_figures(*args, **kw)          # ends on host copies: nothing left queued
+            figure_ms.append((time.perf_counter() - t0) * 1e3)
+            if caught is not None:
+                record["figure_syncs"].update(range(n0, len(caught)))
+
+        def timed_validate(loader):
+            t0 = time.perf_counter()
+            out = validate(loader)
+            torch.cuda.synchronize()
+            val_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        def observed_epoch(loader, state, epoch):
+            if epoch != TRAINER_EPOCHS:
+                out = train_epoch(loader, state, epoch)
+                epoch_times.extend(trainer.timer.times)
+                return out
+            # the last epoch: its device trace and its host syncs
+            from torch.profiler import ProfilerActivity, profile
+
+            torch.cuda.synchronize()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                record["caught"], record["figure_syncs"] = caught, set()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    torch.cuda.set_sync_debug_mode("warn")
+                    try:
+                        out = train_epoch(loader, state, epoch)
+                    finally:
+                        torch.cuda.set_sync_debug_mode(0)
+                    torch.cuda.synchronize()
+                    wall_us = (time.perf_counter() - t0) * 1e6
+            epoch_times.extend(trainer.timer.times)
+            del record["caught"]
+            syncs = [i for i, w in enumerate(caught) if "called a synchronizing" in str(w.message)]
+            in_figures = record["figure_syncs"]
+            record["syncs"] = len(syncs)
+            record["figure_syncs"] = len(in_figures.intersection(syncs))
+            record["sync_sites"] = collections.Counter(
+                f"{pathlib.Path(caught[i].filename).name}:{caught[i].lineno}" for i in syncs
+                if i not in in_figures)
+            record["events"], record["wall_us"] = trace_events(prof), wall_us
+            return out
+
+        trainer._train_step, trainer._log_figures = counted_step, timed_figures
+        trainer.validate, trainer.train_epoch = timed_validate, observed_epoch
+        train_mod.save_checkpoint = save_and_snapshot
+        train_mod.EarlyStopping = EarlyStoppingFromEpochOne
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            reset_counts(counters)
+            best = trainer.train(train_loader, val_loader, epochs=TRAINER_EPOCHS,
+                                 learning_rate=1e-4)
+            torch.cuda.synchronize()
+            run_counts = read_counts(counters)
+        finally:
+            train_mod.save_checkpoint, train_mod.EarlyStopping = real_save, real_early
+            Config.LOGS_DIR, Config.CHECKPOINTS_DIR = old_dirs
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+        n_steps = TRAINER_EPOCHS * steps_per_epoch
+        expected = {"conv_bn_relu": 0, "channel_sums": 46, "channel_dual_sums": 46,
+                    "dihedral_normalize": 1, "fused_cross_entropy": 0}
+        print(f"main path (trainer): {TRAINER_EPOCHS} epochs, {n_steps} steps, launches "
+              f"{json.dumps(run_counts)}", flush=True)
+        if len(per_step) != n_steps or any(c != expected for c in per_step):
+            raise AssertionError(f"trainer launches per step {per_step}, expected {expected}")
+        if run_counts != {k: v * n_steps for k, v in expected.items()}:
+            raise AssertionError(f"kernel launches outside the train steps: {run_counts}")
+        if any(b != {"images": "torch.uint8", "masks": "torch.uint8", "on_card": True}
+               for b in batch_kinds):
+            raise AssertionError(f"prefetched batches {batch_kinds}")
+        if not best or not saved:
+            raise AssertionError("the trainer selected or saved no best model")
+
+        # the best checkpoint: JAX layout, back through from_jax_state_dict
+        ckpt = load_checkpoint(saved[-1]["path"])
+        if set(ckpt) != {"epoch", "model_state_dict", "optimizer_state_dict", "metrics",
+                         "improvement_rates"} or ckpt["epoch"] != saved[-1]["epoch"]:
+            raise AssertionError(f"best checkpoint holds {sorted(ckpt)}")
+        reloaded = create_model("Unet", "resnet34", encoder_weights=None, classes=CLASSES,
+                                seed=SEED + 1, dtype=torch.bfloat16, device="cuda")
+        reloaded.load_state_dict(from_jax_state_dict(ckpt["model_state_dict"]), strict=True)
+        if not torch.equal(make_predict_step(reloaded)(probe), saved[-1]["logits"]):
+            raise AssertionError("logits of the reloaded best checkpoint differ")
+        del reloaded, ckpt
+
+        # the event file: every record's CRCs, the JAX trainer's tags
+        event_files = list(pathlib.Path(tmp, "logs").rglob("events.out.tfevents.*"))
+        if len(event_files) != 1:
+            raise AssertionError(f"event files {event_files}")
+        tb_events = read_events(event_files[0])
+        found = {(v["tag"], v["kind"]) for e in tb_events for v in e["values"]}
+        missing = ([t for t in TRAINER_SCALAR_TAGS if (t, "scalar") not in found]
+                   + [t for t in TRAINER_IMAGE_TAGS if (t, "image") not in found])
+        if missing:
+            raise AssertionError(f"tags missing from the event file: {missing}")
+
+    # the last epoch's trace: H2D copies (pinned, on their own stream,
+    # overlapped with the compute stream's kernels) and the busy share
+    events = record["events"]
+    kernels = [e for e in events if e["cat"] == "kernel"]
+    compute_streams = collections.Counter(e["stream"] for e in kernels)
+    compute_stream = compute_streams.most_common(1)[0][0]
+    batch_bytes = TRAIN_BATCH * TILE * TILE * 4             # images + uint8 masks
+    h2d = [e for e in events if e["cat"] == "gpu_memcpy" and "HtoD" in e["name"]
+           and (e["bytes"] or 0) >= TRAIN_BATCH * TILE * TILE]
+    h2d_bytes = sum(e["bytes"] for e in h2d)
+    if h2d_bytes != steps_per_epoch * batch_bytes:
+        raise AssertionError(f"H2D copies of the training batches: {h2d_bytes} bytes, "
+                             f"expected {steps_per_epoch * batch_bytes}")
+    if not all("Pinned" in e["name"] and e["stream"] != compute_stream for e in h2d):
+        raise AssertionError(f"H2D copies not pinned or on the compute stream: "
+                             f"{[(e['name'], e['stream']) for e in h2d]}")
+    compute_spans = [(e["ts"], e["ts"] + e["dur"]) for e in kernels
+                     if e["stream"] == compute_stream]
+    h2d_us = sum(e["dur"] for e in h2d)
+    covered_us = sum(overlap_us((e["ts"], e["ts"] + e["dur"]), compute_spans) for e in h2d)
+    busy_us = union_us([(e["ts"], e["ts"] + e["dur"]) for e in events])
+    step_times = np.asarray(epoch_times) * 1e3
+
+    # the bare train step (the trainer's: WEAK, plain CE), batches on the card
+    dev = [tuple(torch.from_numpy(a).cuda() for a in (images[i:i + TRAIN_BATCH],
+                                                       masks[i:i + TRAIN_BATCH].astype(np.uint8)))
+           for i in (0, TRAIN_BATCH)]
+    from uda_aerial_semantic_segmentation_research_tpu_torch.training.state import (
+        TrainState,
+        adam,
+    )
+
+    state = TrainState(trainer.model, adam(1e-4))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    turn = iter(range(10 ** 9))
+    bare_ms = time_ms(lambda: train_step(state, gen, *dev[next(turn) % 2]), reps=5, warmup=1)
+    result = {
+        "model": "resnet34 U-Net, 23 classes", "dtype": "bfloat16", "batch": TRAIN_BATCH,
+        "tile": TILE, "augmentation": "WEAK (the trainer's default)", "fused_ce": False,
+        "epochs": TRAINER_EPOCHS, "train_steps": n_steps, "validations": len(val_ms),
+        "launches_per_step": per_step[0], "launches": run_counts,
+        "step_timer_ms_p50": float(np.percentile(step_times, 50)),
+        "step_timer_ms_p95": float(np.percentile(step_times, 95)),
+        "step_timer_steps": len(step_times),
+        "tiles_per_s": TRAIN_BATCH / float(np.mean(step_times)) * 1e3,
+        "bare_step_ms": bare_ms, "bare_tiles_per_s": TRAIN_BATCH / bare_ms * 1e3,
+        "h2d_ms_per_batch": h2d_us / 1e3 / steps_per_epoch,
+        "h2d_bytes_per_batch": batch_bytes, "h2d_pinned": True,
+        "h2d_overlapped_share": covered_us / h2d_us if h2d_us else "not measured",
+        "h2d_streams": sorted({e["stream"] for e in h2d}), "compute_stream": compute_stream,
+        "device_busy_share_epoch": busy_us / record["wall_us"],
+        "epoch_wall_ms": record["wall_us"] / 1e3,
+        "validation_ms": val_ms, "figure_logging_host_ms": figure_ms,
+        "checkpoint_bytes": saved[-1]["bytes"],
+        "checkpoint_write_ms": [s["write_ms"] for s in saved],
+        "best_epoch": saved[-1]["epoch"],
+        "host_syncs_last_epoch": record["syncs"],
+        "host_syncs_in_figure_logging": record["figure_syncs"],
+        "host_syncs_per_train_step": (record["syncs"] - record["figure_syncs"])
+        / steps_per_epoch,
+        "host_sync_sites_outside_figures": dict(record["sync_sites"]),
+        "peak_mem_gib": peak_gib, "event_records": len(tb_events),
+        "installation": install, "card": card}
+    del trainer, model, state, dev, train_step
+    torch.cuda.empty_cache()
+    return result
+
+
+def _trainer_child(card) -> dict:
+    return drive_trainer(kernel_counters(), card, np.random.default_rng(SEED + 9))
+
+
+def trainer_phase(card) -> dict:
+    """Phase 9 in a fresh process (spawned, one card, kernels loaded from the
+    libraries this process built): in a process that has taken many
+    profiler windows, a later trace lost events on the H100 -- the trainer's
+    H2D copies after phase 3b's windows, and one sums kernel in 20 of every
+    3b window after the trainer's profiled epoch."""
+    import multiprocessing
+
+    torch.cuda.empty_cache()
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        return pool.apply(_trainer_child, (card,))
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--probe-batch", type=int, default=None,
@@ -1427,8 +1812,16 @@ def main(argv=None) -> int:
             or head_err > 1e-3 or hist_l1 > 2 * 0.001 * 2 * 256 * 256):
         raise AssertionError("float32 train step on the card disagrees with the CPU")
 
+    # 9. the trainer: SegmentationTrainer.train, 2 epochs over an in-memory
+    #    dataset (80 tiles, split 64 / 16, weighted sampler, B=32), in a
+    #    process of its own (``trainer_phase``)
+    trainer_result = trainer_phase(card)
+    trainer_counts = trainer_result["launches"]
+    print(json.dumps({"trainer": trainer_result}), flush=True)
+
     # 8. results
-    total = {k: serving_counts[k] + train_counts[k] + eval_counts[k] for k in counters}
+    total = {k: serving_counts[k] + train_counts[k] + eval_counts[k] + trainer_counts[k]
+             for k in counters}
     if min(total.values()) == 0:
         raise AssertionError(f"a kernel never launched on the main paths: {total}")
     src = f"{PORT}/csrc"

@@ -352,16 +352,20 @@ def test_train_step_factory_validates_like_jax():
     with pytest.raises(ValueError, match="dice"):
         make_supervised_train_step(model, CLASSES, aug_cfg=augment.NONE, seg_loss="dice",
                                    fused_ce=True)
-    with pytest.raises(NotImplementedError, match="dice"):
-        make_supervised_train_step(model, CLASSES, aug_cfg=augment.NONE, seg_loss="dice")
+    # seg_loss="dice" trains with SMPDiceLoss (held against JAX in tests/test_torch_trainer.py)
+    dice_state, dice_metrics = make_supervised_train_step(
+        model, CLASSES, aug_cfg=augment.NONE, seg_loss="dice")(
+        TrainState(model, adam(LR)), None, *_batches()[0])
+    assert dice_state.step == 1 and 0.0 <= dice_metrics["loss"].item() <= 1.0
     # WEAK by default, as in the JAX package: every stage runs on the CPU
     weak = make_supervised_train_step(model, CLASSES)
     weak_state, metrics = weak(TrainState(model, adam(LR)), torch.Generator().manual_seed(0),
                                *_batches()[0])
     assert weak_state.step == 1 and np.isfinite(metrics["loss"].item())
     assert metrics["hist"].sum().item() == BATCH * SIZE * SIZE
-    with pytest.raises(NotImplementedError, match="dice"):
-        make_eval_step(model, CLASSES, seg_loss="dice")
+    dice_eval = make_eval_step(model, CLASSES, seg_loss="dice")(*_batches()[0])
+    assert 0.0 <= dice_eval["loss"].item() <= 1.0
+    assert dice_eval["hist"].sum().item() == BATCH * SIZE * SIZE
     with pytest.raises(ValueError, match="seg_loss"):
         make_eval_step(model, CLASSES, seg_loss="focal")
     step = make_supervised_train_step(model, CLASSES, aug_cfg=augment.NONE)

@@ -6,8 +6,10 @@ numerical reference.  It imports ``torch`` only -- never JAX, and nothing
 of the JAX package -- and keeps its own copies of what it needs.
 
 Ported so far: the serving path (U-Net eval forward -> ``predict_batch``
-/ ``predict_raster``) with its hand-written CUDA kernel
-``ops.conv_bn_relu``.  Public functions keep the JAX package's NHWC
-layout; entry points run on ``cuda`` unless the caller passes
-``device="cpu"``.
+/ ``predict_raster``), the phase-1 train and eval steps with the whole
+on-device augmentation, and the phase-1 trainer (``training.train``) with
+its data layer, checkpoints and event files; the JAX package's four Pallas
+kernels are hand-written CUDA under ``csrc/``.  Public functions keep the
+JAX package's NHWC layout; entry points run on ``cuda`` unless the caller
+passes ``device="cpu"``.
 """

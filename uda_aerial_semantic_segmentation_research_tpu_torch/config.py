@@ -2,16 +2,22 @@
 
 Same attribute names as the JAX package's ``Config`` (the reference's
 static ``Config`` surface), so code written against one reads the
-other.  The differences: ``DEVICE`` names a torch device (``cuda``),
-``compute_dtype()`` returns a ``torch.dtype``; the counterpart of
-``get_device()`` is ``utils.device.resolve_device``.
+other.  The differences: ``DEVICE`` names a torch device (``cuda`` by
+default, ``cpu`` when a caller asks for the CPU), ``get_device()`` returns
+a ``torch.device`` and raises without a GPU unless ``DEVICE`` is ``cpu``,
+``compute_dtype()`` returns a ``torch.dtype``.
 """
 
 from __future__ import annotations
 
 import os
+from pathlib import Path
 
 import torch
+
+from uda_aerial_semantic_segmentation_research_tpu_torch.utils.device import (
+    resolve_device,
+)
 
 
 class Config:
@@ -70,6 +76,27 @@ class Config:
             cls.BATCH_SIZE = int(os.environ["UDA_TPU_BATCH_SIZE"])
         if os.environ.get("UDA_TPU_NUM_CLASSES"):
             cls.NUM_CLASSES = int(os.environ["UDA_TPU_NUM_CLASSES"])
+
+    @classmethod
+    def get_device(cls) -> torch.device:
+        """The device ``DEVICE`` names, resolved by ``resolve_device``:
+        ``cuda`` by default (RuntimeError without a GPU), ``cpu`` only when
+        ``DEVICE`` says so."""
+        return resolve_device(cls.DEVICE)
+
+    @classmethod
+    def setup_directories(cls) -> None:
+        """Create the workspace directory layout (the JAX package's set)."""
+        for d in (
+            cls.LOGS_DIR,
+            cls.CHECKPOINTS_DIR,
+            cls.DATA_DIR,
+            os.path.join(cls.DATA_DIR, "source"),
+            os.path.join(cls.DATA_DIR, "target"),
+            os.path.join(cls.RESULTS_DIR, "plots"),
+            os.path.join(cls.RESULTS_DIR, "metrics"),
+        ):
+            Path(d).mkdir(parents=True, exist_ok=True)
 
     @classmethod
     def compute_dtype(cls) -> torch.dtype:

@@ -4,7 +4,8 @@
 ``Unet``, draws its weights from a seeded ``torch.Generator`` with the
 JAX package's initializers (lecun-normal convs, BatchNorm ones/zeros,
 zero-initialized last norm of each residual block), and returns it in
-eval mode on the device.
+eval mode on the device.  ``create_model`` selects the architecture by
+name, as the JAX package's does; the port has the U-Net so far.
 """
 
 from __future__ import annotations
@@ -18,6 +19,9 @@ from uda_aerial_semantic_segmentation_research_tpu_torch.config import Config
 from uda_aerial_semantic_segmentation_research_tpu_torch.models.convert import (
     from_jax_state_dict,
     to_jax_state_dict,
+)
+from uda_aerial_semantic_segmentation_research_tpu_torch.models.pretrained import (
+    load_imagenet_encoder,
 )
 from uda_aerial_semantic_segmentation_research_tpu_torch.models.resnet import (
     ENCODERS,
@@ -69,6 +73,33 @@ def create_unet(encoder_name: Optional[str] = None, classes: Optional[int] = Non
     return model.to(dev, memory_format=torch.channels_last).eval()
 
 
-__all__ = ["ENCODERS", "ResNetEncoder", "Unet", "build_encoder", "create_unet",
-           "encoder_out_channels", "from_jax_state_dict", "init_weights_",
-           "to_jax_state_dict"]
+# architectures of the JAX package's create_model that the port lacks yet
+_NOT_PORTED = ("UnetPlusPlus", "FPN", "PSPNet", "Linknet", "DeepLabV3Plus", "PAN", "MAnet")
+
+
+def create_model(model_name: Optional[str] = None, encoder_name: Optional[str] = None,
+                 encoder_weights: Optional[str] = None, in_channels: Optional[int] = None,
+                 classes: Optional[int] = None, seed: int = 0,
+                 dtype: Optional[torch.dtype] = None, device=None, **arch_kwargs) -> Unet:
+    """By-name architecture factory (defaults from ``Config``).  ``"Unet"``
+    builds on ``create_unet``; ``encoder_weights="imagenet"`` then loads the
+    local converted encoder checkpoint (``models.pretrained``)."""
+    model_name = model_name or Config.MODEL_NAME
+    encoder_name = encoder_name or Config.ENCODER_NAME
+    if model_name in _NOT_PORTED:
+        raise NotImplementedError(
+            f"architecture {model_name!r} is not ported yet (ROADMAP A.13); "
+            f"the port has 'Unet'")
+    if model_name != "Unet":
+        raise ValueError(f"Unknown model '{model_name}'; "
+                         f"available: {sorted(_NOT_PORTED + ('Unet',))}")
+    model = create_unet(encoder_name, classes=classes, in_channels=in_channels, seed=seed,
+                        dtype=dtype, device=device, **arch_kwargs)
+    if encoder_weights == "imagenet":
+        load_imagenet_encoder(model, encoder_name)
+    return model
+
+
+__all__ = ["ENCODERS", "ResNetEncoder", "Unet", "build_encoder", "create_model",
+           "create_unet", "encoder_out_channels", "from_jax_state_dict", "init_weights_",
+           "load_imagenet_encoder", "to_jax_state_dict"]

@@ -28,6 +28,7 @@ from uda_aerial_semantic_segmentation_research_tpu_torch.ops.fused_ce import (
     fused_cross_entropy,
 )
 from uda_aerial_semantic_segmentation_research_tpu_torch.ops.losses import (
+    SMPDiceLoss,
     softmax_cross_entropy,
 )
 from uda_aerial_semantic_segmentation_research_tpu_torch.ops.metrics import (
@@ -83,8 +84,8 @@ def make_supervised_train_step(model: torch.nn.Module, num_classes: int,
     forward, one read and one write backward, no float32 softmax or
     per-pixel loss in device memory; requires ``class_weights=None``.
 
-    ``seg_loss``: ``"ce"``; ``"dice"`` (the GRL stack's phase-1 criterion)
-    raises ``NotImplementedError`` until ``SMPDiceLoss`` is ported.
+    ``seg_loss``: ``"ce"`` (softmax cross-entropy) or ``"dice"``
+    (``SMPDiceLoss``, the GRL stack's phase-1 criterion).
     """
     _check_seg_loss(seg_loss)
     if fused_ce and class_weights is not None:
@@ -93,8 +94,8 @@ def make_supervised_train_step(model: torch.nn.Module, num_classes: int,
         if fused_ce or class_weights is not None:
             raise ValueError(
                 "seg_loss='dice' supports neither fused_ce nor class_weights")
-        raise NotImplementedError("seg_loss='dice' is not ported yet (SMPDiceLoss)")
-    if fused_ce:
+        ce = SMPDiceLoss()
+    elif fused_ce:
         ce = fused_cross_entropy
     else:
         def ce(logits, m):
@@ -127,16 +128,17 @@ def make_eval_step(model: torch.nn.Module, num_classes: int, class_weights=None,
                    seg_loss: str = "ce"):
     """``step(images, masks) -> metrics`` (loss / iou / accuracy /
     per_class_iou / hist, device tensors): normalize, eval-mode forward
-    with the running BatchNorm statistics, ``softmax_cross_entropy``.
-
-    ``seg_loss="dice"`` raises ``NotImplementedError`` until
-    ``SMPDiceLoss`` is ported.
+    with the running BatchNorm statistics, then ``softmax_cross_entropy``
+    or, with ``seg_loss="dice"``, ``SMPDiceLoss``.
     """
     _check_seg_loss(seg_loss)
     if seg_loss == "dice":
         if class_weights is not None:
             raise ValueError("seg_loss='dice' does not support class_weights")
-        raise NotImplementedError("seg_loss='dice' is not ported yet (SMPDiceLoss)")
+        loss_fn = SMPDiceLoss()
+    else:
+        def loss_fn(logits, m):
+            return softmax_cross_entropy(logits, m, class_weights)
 
     def step(images, masks):
         device = model_device(model)
@@ -146,7 +148,7 @@ def make_eval_step(model: torch.nn.Module, num_classes: int, class_weights=None,
             m = torch.as_tensor(masks, device=device).to(torch.int32)
             logits = model(x)
             metrics = _seg_metrics(logits, m, num_classes)
-            metrics["loss"] = softmax_cross_entropy(logits, m, class_weights)
+            metrics["loss"] = loss_fn(logits, m)
         return metrics
 
     return step
