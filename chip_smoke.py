@@ -45,6 +45,11 @@
      (draws, dihedral kernel + cast, warps, noise, blur, colour, HSV,
      normalize), the peak memory a call adds, and one call under
      ``torch.cuda.set_sync_debug_mode("error")`` (no host sync);
+   - the sums kernels also at the discriminator's three BatchNorm inputs
+     of phases 2 and 3 ((32·128², 128), (32·64², 256), (32·32², 512), bf16,
+     forward and dual, timed as above), and ``dihedral_normalize`` without
+     masks (the target batches of phases 2 and 3) at (32, 512, 512, 3) for
+     each batch class, bit-exact, timed for the mixed class;
    - ``fused_cross_entropy`` at (32, 512, 512, 23) f32 and bf16, forward
      and backward;
 4. drives the serving path -- resnet34 U-Net, 23 classes, 512 px tiles,
@@ -73,7 +78,7 @@
    model (plain versions), WEAK in float32 with the same seeded draws
    (made once on the host);
 8. prints one JSON line of kernel results (launches summed over the main
-   paths of 4, 5, 6 and 9), the card line again, and last
+   paths of 4, 5, 6, 9 and 10), the card line again, and last
    ``{"ok": true, "device": {...}}``.
 9. (after 7, before 8 prints; in a spawned process of its own, whose
    launch counts 8 adds in) drives the phase-1 trainer,
@@ -96,6 +101,30 @@
    and write ms, host syncs per train step, peak memory, and which of
    cv2 / PIL / pandas / tqdm / matplotlib / seaborn / sklearn / tensorboard
    / g++ / libjpeg / libpng the machine has.
+10. (after 9, in a spawned process of its own) drives the three-phase
+   pipeline, ``run_pipeline(phase1_epochs=1, phase2_epochs=1,
+   phase3_epochs=1, batch_size=32, force_transitions=True)``, on the same
+   model width with the JAX defaults (phase 2: ``WEAK``, ``lambda_adv``
+   0.001, per-domain discriminator forwards; phase 3: ``STRONG`` views,
+   ``adam(lr * 0.1, clip_norm=1.0)`` over both models, no remat), its
+   ``_build_loaders`` replaced in that process by in-memory loaders (the
+   80 source tiles split 64 / 16, 64 seeded target tiles with another
+   photometric offset, shuffled, ``drop_last``): 2 steps a phase.  Checks
+   the launches of every step (phase 1: 46 / 46 / 1 / 0; phase 2: 52 / 52
+   / 2 / 0, the U-Net and the discriminator on both domains; phase 3: 95 /
+   95 / 2 / 0, the U-Net on two views and the discriminator once) and none
+   outside the steps; the summary's three phases and
+   ``training_metadata.json``; every phase's best checkpoint reloaded
+   through ``from_jax_state_dict`` (U-Net, and the discriminator of phases
+   2 and 3) gives bit-identical logits; the discriminator's BatchNorm input
+   shapes; one phase-3 step with a NaN in the discriminator's classifier
+   bias leaves every element of the state bit-identical and reports
+   ``finite`` false.  Prints a ``pipeline`` line: per phase the bare step
+   (p50 of 5 after a warm-up, CUDA events, batches on the card), tiles/s,
+   launches per step, peak memory, host syncs per step, device ms by kind
+   (profiler); phase 3's consistency KL alone (forward + backward, chunked
+   and whole, with its byte bound); checkpoint MB and write ms per phase;
+   the pipeline's wall time.
 
 Any failed check raises and the script exits non-zero; without a CUDA
 device it exits non-zero before printing any result.  It imports
@@ -738,6 +767,35 @@ def check_dihedral(ops, host_rng, parent=None):
     res["host_us_per_call"] = host_us_per_call(
         lambda: ops.dihedral_normalize(images, mixed, masks))
     print("kernel check", json.dumps(res), flush=True)
+    return res
+
+
+def check_dihedral_no_masks(ops, host_rng) -> dict:
+    """dihedral_normalize without masks (the target batches of phases 2 and
+    3) at the train step's shape, for each batch class and ``normalize``
+    both ways: bit-exact against the plain version, no mask returned; timed
+    for the mixed class as 20 launches per event pair on rotating cold
+    copies, beside its plain version and its byte bound."""
+    b = TRAIN_BATCH
+    images = torch.from_numpy(host_rng.integers(0, 256, (b, TILE, TILE, 3), dtype=np.uint8)).cuda()
+    for cls in DIHEDRAL_CLASSES:
+        flags = dihedral_flags(host_rng, cls, b)
+        for normalize in (False, True):
+            x, m = ops.dihedral_normalize(images, flags, None, normalize=normalize)
+            x_ref, _ = ops.dihedral_normalize_reference(images, flags, None, normalize=normalize)
+            if m is not None or not torch.equal(x, x_ref):
+                raise AssertionError(f"dihedral_normalize without masks ({cls}, "
+                                     f"normalize={normalize}) is not bit-exact")
+    flags = dihedral_flags(host_rng, "mixed", b)
+    n = images.numel()
+    inputs = [(images,)] + rotation(lambda: (images.clone(),), n)[1:]
+    res = dict(shape=list(images.shape), masks=None, tolerance="bit-exact", max_abs_err=0.0,
+               ms=device_ms(cycling(lambda im: ops.dihedral_normalize(im, flags, None), inputs)),
+               plain_ms=device_ms(cycling(
+                   lambda im: ops.dihedral_normalize_reference(im, flags, None), inputs)))
+    res["bound_ms"], res["bound_by"] = roofline(5 * n + 4 * b, 2 * n)
+    res["share_of_bound"] = res["bound_ms"] / res["ms"]
+    print("kernel check", json.dumps({"dihedral_normalize_no_masks": res}), flush=True)
     return res
 
 
@@ -1458,6 +1516,377 @@ def trainer_phase(card) -> dict:
         return pool.apply(_trainer_child, (card,))
 
 
+# the pipeline phase: run_pipeline over in-memory source tiles (80, split
+# 64 / 16) and target tiles (64, another photometric offset), one epoch a
+# phase at B=32: 2 steps in each phase
+PIPE_TARGETS, PIPE_DEVICE, PIPE_ENCODER = 64, "cuda", "resnet34"
+# the discriminator's BatchNorm inputs at 512 px, B=32 (NHWC)
+DISC_BN_SHAPES = [(32, 128, 128, 128), (32, 64, 64, 256), (32, 32, 32, 512)]
+STEP_FACTORIES = ("make_supervised_train_step", "make_adversarial_train_step",
+                  "make_unsupervised_train_step")
+
+
+class InMemoryTargets:
+    """Seeded uint8 target tiles with ``TargetDataset``'s ``load_raw``."""
+
+    def __init__(self, images):
+        self.images = images
+
+    def __len__(self):
+        return len(self.images)
+
+    def load_raw(self, idx):
+        return self.images[idx]
+
+    __getitem__ = load_raw
+
+
+def pipeline_expected_launches(n_unet_bn: int, n_disc_bn: int) -> dict:
+    """Kernel launches per train step of each phase: one ``channel_sums``
+    and one ``channel_dual_sums`` per train-mode BatchNorm forward, one
+    ``dihedral_normalize`` per augmented batch (eval-mode BatchNorm and the
+    discriminator's eval forward in phase 2's G-step launch nothing)."""
+    def counts(bn, dihedral):
+        return {"conv_bn_relu": 0, "channel_sums": bn, "channel_dual_sums": bn,
+                "dihedral_normalize": dihedral, "fused_cross_entropy": 0}
+    return {"make_supervised_train_step": counts(n_unet_bn, 1),
+            # U-Net on the source batch; D on the source and on the target batch
+            "make_adversarial_train_step": counts(n_unet_bn + 2 * n_disc_bn, 2),
+            # U-Net on two target views; D on the un-augmented target batch
+            "make_unsupervised_train_step": counts(2 * n_unet_bn + n_disc_bn, 2)}
+
+
+def bits(t):
+    """A tensor's bits, so that NaN compares equal to the same NaN."""
+    t = t.detach()
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def state_snapshot(state) -> dict:
+    """Every element of a phase-3 state: parameters, BatchNorm buffers, Adam
+    moments and counts, the step counter (clones)."""
+    snap = {f"model/{k}": bits(v).clone() for k, v in
+            itertools.chain(state.model.named_parameters(), state.model.named_buffers())}
+    names = {id(p): k for k, p in state.model.named_parameters()}
+    for p, st in state.optimizer.state.items():
+        for k, v in st.items():
+            snap[f"adam/{names[id(p)]}/{k}"] = bits(v).clone()
+    snap["step"] = state.step.clone()
+    return snap
+
+
+def drive_pipeline(counters, card, host_rng) -> dict:
+    """Phase 10: ``run_pipeline`` on the card (see main)."""
+    from uda_aerial_semantic_segmentation_research_tpu_torch.config import Config
+    from uda_aerial_semantic_segmentation_research_tpu_torch.data.dataset import (
+        WeightedRandomSampler,
+        class_balance,
+        random_split,
+    )
+    from uda_aerial_semantic_segmentation_research_tpu_torch.data.loader import DataLoader
+    from uda_aerial_semantic_segmentation_research_tpu_torch.models import (
+        DomainAdaptationModel,
+        create_discriminator,
+        create_unet,
+        from_jax_state_dict,
+    )
+    from uda_aerial_semantic_segmentation_research_tpu_torch.ops.augment import (
+        normalize_images,
+    )
+    from uda_aerial_semantic_segmentation_research_tpu_torch.ops.batch_norm import BatchNorm
+    from uda_aerial_semantic_segmentation_research_tpu_torch.ops.losses import (
+        ConsistencyLoss,
+        FineTuningLoss,
+    )
+    from uda_aerial_semantic_segmentation_research_tpu_torch.training import (
+        phase_manager as pm_mod,
+        pipeline,
+        steps as step_lib,
+    )
+    from uda_aerial_semantic_segmentation_research_tpu_torch.training.state import (
+        AdversarialState,
+        TrainState,
+        adam,
+    )
+    from uda_aerial_semantic_segmentation_research_tpu_torch.utils.checkpoint import (
+        load_checkpoint,
+    )
+
+    device = torch.device(PIPE_DEVICE)
+    images = host_rng.integers(0, 256, (TRAINER_TILES, TILE, TILE, 3), dtype=np.uint8)
+    masks = host_rng.integers(0, CLASSES, (TRAINER_TILES, TILE, TILE)).astype(np.int32)
+    targets = np.clip(host_rng.integers(0, 256, (PIPE_TARGETS, TILE, TILE, 3))
+                      * 0.7 + 40.0, 0, 255).astype(np.uint8)
+    source = InMemoryTiles(images, masks)
+    counts = [np.bincount(m.reshape(-1), minlength=CLASSES) for m in masks]
+    _, weights = class_balance([{c: int(n[c]) for c in np.nonzero(n)[0]} for n in counts],
+                               [m.size for m in masks])
+
+    def build_loaders(batch_size):
+        """What ``_build_loaders`` builds from files, from the tiles above."""
+        train_ds, val_ds = random_split(source, [TRAINER_TRAIN, TRAINER_TILES - TRAINER_TRAIN],
+                                        seed=Config.SEED)
+        w = weights[train_ds.indices]
+        sampler = WeightedRandomSampler(w / w.sum(), num_samples=len(w))
+        return (DataLoader(train_ds, batch_size=batch_size, sampler=sampler, drop_last=True,
+                           num_workers=Config.NUM_WORKERS),
+                DataLoader(val_ds, batch_size=batch_size),
+                DataLoader(InMemoryTargets(targets), batch_size=batch_size, shuffle=True,
+                           drop_last=True, num_workers=Config.NUM_WORKERS))
+
+    model = create_unet(PIPE_ENCODER, classes=CLASSES, seed=SEED, dtype=torch.bfloat16,
+                        device=device)
+    n_unet_bn = sum(isinstance(m, BatchNorm) for m in model.modules())
+    n_disc_bn = sum(isinstance(m, BatchNorm) for m in
+                    create_discriminator(device="cpu", dtype=torch.float32).modules())
+    expected = pipeline_expected_launches(n_unet_bn, n_disc_bn)
+    probe = torch.from_numpy(images[-2:]).to(device)             # two validation tiles
+
+    per_step = {name: [] for name in STEP_FACTORIES}
+    real_factories = {name: getattr(step_lib, name) for name in STEP_FACTORIES}
+
+    def counted_factory(name):
+        def make(*args, **kw):
+            step = real_factories[name](*args, **kw)
+
+            def counted(*a, **k):
+                before = read_counts(counters)
+                out = step(*a, **k)
+                after = read_counts(counters)
+                per_step[name].append({key: after[key] - before[key] for key in after})
+                return out
+            return counted
+        return make
+
+    saved = []
+    real_save = pm_mod.PhaseManager.save_checkpoint
+
+    def save_and_snapshot(self, trainer, metrics, phase, is_best=False):
+        """The phase checkpoint, timed, with the live models' logits on the
+        probe tiles at that moment."""
+        t0 = time.perf_counter()
+        real_save(self, trainer, metrics, phase, is_best=is_best)
+        write_ms = (time.perf_counter() - t0) * 1e3
+        path = self.phase_dirs[phase] / ("best_model.pth" if is_best else "latest_model.pth")
+        disc = getattr(trainer, "discriminator", None) if phase.name != "SEGMENTATION" else None
+        entry = {"phase": phase.name, "path": str(path), "write_ms": write_ms,
+                 "mb": os.path.getsize(path) / 1e6,
+                 "logits": step_lib.make_predict_step(self.model)(probe).clone()}
+        if disc is not None:
+            disc.eval()
+            with torch.inference_mode():
+                entry["disc_logits"] = disc(normalize_images(probe), return_logits=True).clone()
+            entry["disc_dtype"] = disc.dtype
+        saved.append(entry)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        old = (Config.LOGS_DIR, Config.CHECKPOINTS_DIR, Config.DEVICE, Config.ENCODER_WEIGHTS,
+               pipeline._build_loaders)
+        Config.LOGS_DIR, Config.CHECKPOINTS_DIR = os.path.join(tmp, "logs"), os.path.join(tmp, "ckpt")
+        Config.DEVICE, Config.ENCODER_WEIGHTS = PIPE_DEVICE, None
+        pipeline._build_loaders = build_loaders
+        pm_mod.PhaseManager.save_checkpoint = save_and_snapshot
+        for name in STEP_FACTORIES:
+            setattr(step_lib, name, counted_factory(name))
+        try:
+            torch.cuda.synchronize()
+            reset_counts(counters)
+            t0 = time.perf_counter()
+            summary = pipeline.run_pipeline(phase1_epochs=1, phase2_epochs=1, phase3_epochs=1,
+                                            batch_size=TRAIN_BATCH, force_transitions=True,
+                                            checkpoints_dir=os.path.join(tmp, "ckpt"),
+                                            model=model)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            run_counts = read_counts(counters)
+        finally:
+            (Config.LOGS_DIR, Config.CHECKPOINTS_DIR, Config.DEVICE, Config.ENCODER_WEIGHTS,
+             pipeline._build_loaders) = old
+            pm_mod.PhaseManager.save_checkpoint = real_save
+            for name, fn in real_factories.items():
+                setattr(step_lib, name, fn)
+
+        # launches: exact per step, none outside the steps
+        steps_run = {name: len(v) for name, v in per_step.items()}
+        print(f"main path (pipeline): steps {json.dumps(steps_run)}, launches "
+              f"{json.dumps(run_counts)}", flush=True)
+        for name, runs in per_step.items():
+            if len(runs) != TRAINER_TRAIN // TRAIN_BATCH or any(c != expected[name] for c in runs):
+                raise AssertionError(f"{name} launches per step {runs}, "
+                                     f"expected {expected[name]}")
+        outside = {k: run_counts[k] - sum(c[k] for runs in per_step.values() for c in runs)
+                   for k in run_counts}
+        if any(outside.values()):
+            raise AssertionError(f"kernel launches outside the train steps: {outside}")
+
+        # the summary and the experiment's metadata
+        if set(summary["phases"]) != {"segmentation", "adversarial", "fine_tuning"} \
+                or summary.get("final_phase") != "FINE_TUNING":
+            raise AssertionError(f"pipeline summary {summary}")
+        with open(pathlib.Path(summary["experiment_dir"]) / "training_metadata.json") as f:
+            metadata = json.load(f)
+        phases = ["SEGMENTATION", "ADVERSARIAL", "FINE_TUNING"]
+        if (sorted(metadata["best_metrics"]) != sorted(phases)
+                or metadata["phases_completed"] != phases[:2]
+                or metadata["current_phase"] != phases[2]
+                or [(t["from_phase"], t["to_phase"]) for t in metadata["phase_transitions"]]
+                != list(zip(phases, phases[1:]))):
+            raise AssertionError(f"training_metadata.json {metadata}")
+
+        # every phase's best checkpoint reloads bit for bit
+        if [s["phase"] for s in saved] != phases:
+            raise AssertionError(f"phase checkpoints {[s['phase'] for s in saved]}")
+        for s in saved:
+            ckpt = load_checkpoint(s["path"])
+            has_disc = "discriminator_state_dict" in ckpt
+            if has_disc != (s["phase"] != "SEGMENTATION"):
+                raise AssertionError(f"{s['phase']} checkpoint holds {sorted(ckpt)}")
+            unet = create_unet(PIPE_ENCODER, classes=CLASSES, seed=SEED + 1,
+                               dtype=torch.bfloat16, device=device)
+            unet.load_state_dict(from_jax_state_dict(ckpt["model_state_dict"]), strict=True)
+            if not torch.equal(step_lib.make_predict_step(unet)(probe), s["logits"]):
+                raise AssertionError(f"{s['phase']}: the reloaded U-Net's logits differ")
+            if has_disc:
+                disc = create_discriminator(seed=SEED + 2, dtype=s["disc_dtype"], device=device)
+                disc.load_state_dict(from_jax_state_dict(ckpt["discriminator_state_dict"]),
+                                     strict=True)
+                with torch.inference_mode():
+                    got = disc(normalize_images(probe), return_logits=True)
+                if not torch.equal(got, s["disc_logits"]):
+                    raise AssertionError(f"{s['phase']}: the reloaded discriminator differs")
+            del unet, ckpt
+        # the final discriminator (phase 3's), for the bare steps below
+        disc = create_discriminator(seed=SEED, dtype=saved[-1]["disc_dtype"], device=device)
+        disc.load_state_dict(from_jax_state_dict(load_checkpoint(saved[-1]["path"])[
+            "discriminator_state_dict"]), strict=True)
+
+    # the bare step of each phase on the final models, batches on the card:
+    # p50 of 5 steps after one warm-up, peak memory, host syncs under
+    # set_sync_debug_mode("warn")
+    import warnings
+
+    dev = [tuple(torch.from_numpy(a).to(device) for a in (
+        images[i:i + TRAIN_BATCH], masks[i:i + TRAIN_BATCH].astype(np.uint8),
+        targets[i:i + TRAIN_BATCH])) for i in (0, TRAIN_BATCH)]
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    # the census of the discriminator's BatchNorm inputs (the shapes 3b checks)
+    disc_bn_shapes = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, inp: disc_bn_shapes.append(tuple(inp[0].permute(0, 2, 3, 1).shape)))
+        for m in disc.modules() if isinstance(m, BatchNorm)]
+    with torch.inference_mode():
+        disc(normalize_images(dev[0][2]), return_logits=True)
+    for h in hooks:
+        h.remove()
+    if disc_bn_shapes != [(TRAIN_BATCH, *s[1:]) for s in DISC_BN_SHAPES]:
+        raise AssertionError(f"discriminator BatchNorm inputs {disc_bn_shapes}")
+    turn = itertools.count()
+    sup_state = TrainState(model, adam(1e-4))
+    adv_state = AdversarialState(TrainState(model, adam(1e-4)), TrainState(disc, adam(1e-4)))
+    unsup_state = TrainState(DomainAdaptationModel(model, disc), adam(1e-5, clip_norm=1.0),
+                             skip_nonfinite=True)
+    sup = step_lib.make_supervised_train_step(model, CLASSES)
+    adv = step_lib.make_adversarial_train_step(model, disc, CLASSES)
+    unsup = step_lib.make_unsupervised_train_step(model, disc, CLASSES, FineTuningLoss())
+    bare = {
+        "make_supervised_train_step": lambda b: sup(sup_state, gen, b[0], b[1]),
+        "make_adversarial_train_step": lambda b: adv(adv_state, gen, b[0], b[1], b[2]),
+        "make_unsupervised_train_step": lambda b: unsup(unsup_state, gen, b[2], 1.0)}
+    phase_of = dict(zip(STEP_FACTORIES, ("phase1", "phase2", "phase3")))
+    per_phase = {}
+    for name, fn in bare.items():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(lambda: fn(dev[next(turn) % 2]), reps=5, warmup=1)
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                for _ in range(2):
+                    fn(dev[next(turn) % 2])
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        syncs = [f"{pathlib.Path(w.filename).name}:{w.lineno}" for w in caught
+                 if "called a synchronizing" in str(w.message)]
+        prof = profile_forward(lambda: fn(dev[next(turn) % 2]), reps=2)
+        per_phase[phase_of[name]] = {
+            "bare_step_ms_p50": ms, "tiles_per_s": TRAIN_BATCH / ms * 1e3,
+            "launches_per_step": per_step[name][0], "peak_mem_gib": peak_gib,
+            "host_syncs_per_step": len(syncs) / 2, "host_sync_sites": sorted(set(syncs)),
+            "device_ms": prof.get("device_ms_per_call"), "busy_share": prof.get("busy_share"),
+            "by_category_ms": prof.get("by_category_ms")}
+
+    # phase 3's consistency KL alone, forward and backward at the step's
+    # logits shape: chunked (as the step runs it) and whole; its byte bound
+    # reads both float32 logits and writes both gradients once
+    z = [torch.randn((TRAIN_BATCH, TILE, TILE, CLASSES), device=device,
+                     generator=torch.Generator(device=device).manual_seed(SEED + i),
+                     requires_grad=True) for i in range(2)]
+    kl = {}
+    for label, fn in (("chunked", step_lib.chunked_consistency(ConsistencyLoss())),
+                      ("whole", ConsistencyLoss())):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        kl[f"{label}_ms"] = time_ms(lambda: fn(*z).backward(), reps=5, warmup=1)
+        kl[f"{label}_peak_added_gib"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    kl["bound_ms"], kl["bound_by"] = roofline(4 * z[0].numel() * 4, 0)
+    kl["shape"] = list(z[0].shape)
+    del z
+
+    # the non-finite guard: one phase-3 step with a NaN in D's classifier bias
+    bias = disc.classifier.bias
+    with torch.no_grad():
+        bias.fill_(float("nan"))
+    before = state_snapshot(unsup_state)
+    _, nan_metrics = unsup(unsup_state, gen, dev[0][2], 1.0)
+    torch.cuda.synchronize()
+    after = state_snapshot(unsup_state)
+    if nan_metrics["finite"].item() or set(before) != set(after):
+        raise AssertionError("the NaN step reported a finite loss")
+    moved = [k for k in before if not torch.equal(before[k], after[k])]
+    if moved:
+        raise AssertionError(f"the NaN step changed the state: {moved[:5]}")
+
+    for s in saved:
+        s.pop("logits")
+        s.pop("disc_logits", None)
+        s.pop("disc_dtype", None)
+    result = {
+        "model": f"{PIPE_ENCODER} U-Net, {CLASSES} classes, + DomainDiscriminator",
+        "dtype": "bfloat16", "batch": TRAIN_BATCH, "tile": TILE,
+        "data": f"{TRAINER_TILES} source tiles (split {TRAINER_TRAIN} / "
+                f"{TRAINER_TILES - TRAINER_TRAIN}), {PIPE_TARGETS} target tiles, in memory",
+        "epochs_per_phase": 1, "steps": steps_run,
+        "phase3_remat": False, "phase3_step": "joint (not sequential)",
+        "phases": per_phase, "consistency_kl": kl, "launches": run_counts,
+        "checkpoints": [{k: s[k] for k in ("phase", "mb", "write_ms")} for s in saved],
+        "pipeline_wall_s": wall_s,
+        "nan_step_state_bit_identical": True,
+        "summary_phases": sorted(summary["phases"]), "card": card}
+    del model, disc, sup_state, adv_state, unsup_state, dev
+    torch.cuda.empty_cache()
+    return result
+
+
+def _pipeline_child(card) -> dict:
+    return drive_pipeline(kernel_counters(), card, np.random.default_rng(SEED + 10))
+
+
+def pipeline_phase(card) -> dict:
+    """Phase 10 in a fresh process of its own (spawned, as phase 9)."""
+    import multiprocessing
+
+    torch.cuda.empty_cache()
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        return pool.apply(_pipeline_child, (card,))
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--probe-batch", type=int, default=None,
@@ -1762,7 +2191,10 @@ def main(argv=None) -> int:
     torch.testing.assert_close(sums_ops.channel_sums(unaligned),
                                sums_ops.channel_sums_reference(unaligned), rtol=1e-5, atol=1e-4)
     sums_launch_checks = check_sums_launches(sums_ops, gen)
+    disc_sums_results = [check_sums(sums_ops, gen, shape, torch.bfloat16, timed=True)
+                         for shape in DISC_BN_SHAPES]
     dihedral_result = check_dihedral(dihedral_ops, host_rng)
+    dihedral_no_masks = check_dihedral_no_masks(dihedral_ops, host_rng)
     augment_results = time_augment_batch(augment, dihedral_ops, host_rng, card)
     check_augment_card_vs_cpu(augment, dihedral_ops, host_rng)
     ce_results = {dt: check_fused_ce(ce_ops, gen, dt) for dt in (torch.float32, torch.bfloat16)}
@@ -1819,9 +2251,15 @@ def main(argv=None) -> int:
     trainer_counts = trainer_result["launches"]
     print(json.dumps({"trainer": trainer_result}), flush=True)
 
+    # 10. the three-phase pipeline: run_pipeline, one epoch a phase over
+    #     in-memory source and target tiles, in a process of its own
+    pipeline_result = pipeline_phase(card)
+    pipeline_counts = pipeline_result["launches"]
+    print(json.dumps({"pipeline": pipeline_result}), flush=True)
+
     # 8. results
     total = {k: serving_counts[k] + train_counts[k] + eval_counts[k] + trainer_counts[k]
-             for k in counters}
+             + pipeline_counts[k] for k in counters}
     if min(total.values()) == 0:
         raise AssertionError(f"a kernel never launched on the main paths: {total}")
     src = f"{PORT}/csrc"
@@ -1854,8 +2292,8 @@ def main(argv=None) -> int:
         "launches_backward": total["channel_dual_sums"],
         "device_kernels_per_call": sums_launch_checks["device_kernels_per_call"],
         "host_us_per_call": sums_launch_checks["host_us_per_call"],
-        "max_abs_err": max(r["max_abs_err"] for r in sums_results),
-        "max_rel_err": max(r["max_rel_err"] for r in sums_results),
+        "max_abs_err": max(r["max_abs_err"] for r in sums_results + disc_sums_results),
+        "max_rel_err": max(r["max_rel_err"] for r in sums_results + disc_sums_results),
         # 20 launches per event pair over rotating cold copies of the inputs
         "ms": per_step("sums_ms") + per_step("dual_ms"),
         "forward_ms": per_step("sums_ms"), "backward_ms": per_step("dual_ms"),
@@ -1883,6 +2321,11 @@ def main(argv=None) -> int:
             "dual_single_launch_ms", "sums_plain_ms", "dual_plain_ms", "sums_library_ms",
             "dual_library_ms")} | {"batch_norms": BN_SHAPES[tuple(r["shape"])]}
             for r in sums_results],
+        # the discriminator's three BatchNorm inputs (phases 2 and 3), one each
+        "discriminator_per_shape": [{k: r[k] for k in (
+            "shape", "sums_ms", "dual_ms", "sums_bound_ms", "dual_bound_ms",
+            "sums_kernel_ms", "dual_kernel_ms", "sums_plain_ms", "dual_plain_ms",
+            "sums_library_ms", "dual_library_ms", "max_rel_err")} for r in disc_sums_results],
     }, {
         "name": "dihedral_normalize", "route": "cuda",
         "source": f"{src}/dihedral_normalize.cu",
@@ -1899,6 +2342,7 @@ def main(argv=None) -> int:
         "device_kernels_per_call": dihedral_result["device_kernels_per_call"],
         "host_us_per_call": dihedral_result["host_us_per_call"],
         "per_class": {cls: dihedral_result[cls] for cls in DIHEDRAL_CLASSES},
+        "no_masks": dihedral_no_masks,
     }, {
         # per train step: forward + backward on the f32 logits the model returns
         "name": "fused_cross_entropy", "route": "cuda",

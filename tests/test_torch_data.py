@@ -43,9 +43,8 @@ def _patch_paths(mp, cls, root):
     mp.setattr(cls, "DATA_DIR", str(root / "data"))
     mp.setattr(cls, "SAMPLE_DATA_DIR", str(root / "data" / "sample" / "semantic_drone"))
     mp.setattr(cls, "NUM_CLASSES", CLASSES)
-    if cls is JaxConfig:
-        mp.setattr(cls, "SAMPLE_HOLYROOD_DIR", str(root / "data" / "sample" / "holyrood"))
-        mp.setattr(cls, "TARGET_DATA_DIR", str(root / "data" / "target" / "holyrood"))
+    mp.setattr(cls, "SAMPLE_HOLYROOD_DIR", str(root / "data" / "sample" / "holyrood"))
+    mp.setattr(cls, "TARGET_DATA_DIR", str(root / "data" / "target" / "holyrood"))
 
 
 @pytest.fixture(scope="module")
@@ -57,8 +56,7 @@ def fixtures(tmp_path_factory):
         root = tmp_path_factory.mktemp(name)
         with pytest.MonkeyPatch.context() as mp:
             _patch_paths(mp, cls, root)
-            kw = {"num_holyrood": 0} if name == "jax" else {}
-            setup(num_source=N_TILES, image_size=TILE, seed=42, force=True, **kw)
+            setup(num_source=N_TILES, num_holyrood=0, image_size=TILE, seed=42, force=True)
         roots[name] = root / "data"
     return roots["jax"], roots["port"]
 

@@ -371,7 +371,7 @@ def test_train_model_end_to_end_on_fixture_files(tmp_path, monkeypatch):
     for name, value in (("DEVICE", "cpu"), ("ENCODER_NAME", "resnet18"), ("IMAGE_SIZE", 32),
                         ("BATCH_SIZE", 2), ("NUM_WORKERS", 2), ("NUM_CLASSES", CLASSES)):
         monkeypatch.setattr(Config, name, value)
-    setup_test_data(num_source=5, image_size=40, force=True)
+    setup_test_data(num_source=5, num_holyrood=0, image_size=40, force=True)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         model, best = train.train_model(epochs=1)

@@ -7,8 +7,11 @@ of the JAX package -- and keeps its own copies of what it needs.
 
 Ported so far: the serving path (U-Net eval forward -> ``predict_batch``
 / ``predict_raster``), the phase-1 train and eval steps with the whole
-on-device augmentation, and the phase-1 trainer (``training.train``) with
-its data layer, checkpoints and event files; the JAX package's four Pallas
+on-device augmentation, the phase-1 trainer (``training.train``) with
+its data layer, checkpoints and event files, and phases 2 and 3 with the
+three-phase pipeline (``training.pipeline.run_pipeline``: discriminator,
+adversarial and unsupervised steps and trainers, ``PhaseManager``, the
+target-domain data); the JAX package's four Pallas
 kernels are hand-written CUDA under ``csrc/``.  Public functions keep the
 JAX package's NHWC layout; entry points run on ``cuda`` unless the caller
 passes ``device="cpu"``.

@@ -1,16 +1,18 @@
-"""Synthetic source-domain fixtures (no download).
+"""Synthetic source- and target-domain fixtures (no download).
 
-The port's copy of the source half of the JAX package's
-``data/setup_test_data.py``: with the same seed it writes the same files,
+The port's copy of the JAX package's ``data/setup_test_data.py``: with the
+same seed it writes the same files, from the same ``rng`` stream (the
+target tiles are drawn after the source tiles),
 
 - ``<SAMPLE_DATA_DIR>/{original_images,label_images_semantic}``: structured
   synthetic aerial tiles (JPEG) and per-pixel masks (PNG) covering all
   classes,
 - ``<SAMPLE_DATA_DIR>/class_dict_seg.csv`` and a copy at
-  ``<DATA_DIR>/class_dict_seg.csv``.
+  ``<DATA_DIR>/class_dict_seg.csv``,
+- ``<SAMPLE_HOLYROOD_DIR>`` and ``<TARGET_DATA_DIR>``: target-domain JPEGs
+  ``DJI_####.jpg`` with other photometric statistics (a domain gap).
 
-The target-domain fixtures come with the port's target dataset.  Drawing
-and encoding use cv2, imported when the fixtures are written.
+Drawing and encoding use cv2, imported when the fixtures are written.
 """
 
 from __future__ import annotations
@@ -82,9 +84,10 @@ def _write_class_dict(path: Path, num_classes: int):
     path.write_text("\n".join(lines) + "\n")
 
 
-def setup_test_data(num_source: int = 10, image_size: int = 256, seed: int = 42,
-                    force: bool = False) -> None:
-    """Create the source-domain fixtures (idempotent unless ``force``)."""
+def setup_test_data(num_source: int = 10, num_holyrood: int = 8, image_size: int = 256,
+                    seed: int = 42, force: bool = False) -> None:
+    """Create the source- and target-domain fixtures (idempotent unless
+    ``force``)."""
     import cv2
 
     num_classes = Config.NUM_CLASSES
@@ -116,7 +119,18 @@ def setup_test_data(num_source: int = 10, image_size: int = 256, seed: int = 42,
         data_csv.parent.mkdir(parents=True, exist_ok=True)
         _write_class_dict(data_csv, num_classes)
 
+    for tgt_dir in (Path(Config.SAMPLE_HOLYROOD_DIR), Path(Config.TARGET_DATA_DIR)):
+        if force or _count(tgt_dir, ".jpg") < num_holyrood:
+            tgt_dir.mkdir(parents=True, exist_ok=True)
+            for i in range(num_holyrood):
+                img, _ = _synthetic_tile(rng, image_size, num_classes)
+                # other photometric statistics: a domain gap
+                img = np.clip(img.astype(np.float32) * 0.7 + 40.0, 0, 255).astype(np.uint8)
+                img = img[:, :, ::-1].copy()  # channel-swapped palette
+                cv2.imwrite(str(tgt_dir / f"DJI_{i:04d}.jpg"),
+                            cv2.cvtColor(img, cv2.COLOR_RGB2BGR))
+
 
 if __name__ == "__main__":
     setup_test_data()
-    print("Synthetic source fixtures ready under", os.path.abspath(Config.DATA_DIR))
+    print("Synthetic test data ready under", os.path.abspath(Config.DATA_DIR))

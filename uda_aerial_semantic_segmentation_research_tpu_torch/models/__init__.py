@@ -6,6 +6,8 @@ JAX package's initializers (lecun-normal convs, BatchNorm ones/zeros,
 zero-initialized last norm of each residual block), and returns it in
 eval mode on the device.  ``create_model`` selects the architecture by
 name, as the JAX package's does; the port has the U-Net so far.
+``create_discriminator`` builds the image-level domain discriminator the
+same way.
 """
 
 from __future__ import annotations
@@ -16,6 +18,12 @@ from typing import Optional
 import torch
 
 from uda_aerial_semantic_segmentation_research_tpu_torch.config import Config
+from uda_aerial_semantic_segmentation_research_tpu_torch.models.discriminator import (
+    DomainDiscriminator,
+)
+from uda_aerial_semantic_segmentation_research_tpu_torch.models.domain_model import (
+    DomainAdaptationModel,
+)
 from uda_aerial_semantic_segmentation_research_tpu_torch.models.convert import (
     from_jax_state_dict,
     to_jax_state_dict,
@@ -41,10 +49,11 @@ _TRUNC_STD = 0.87962566103423978
 
 @torch.no_grad()
 def init_weights_(model: torch.nn.Module, generator: torch.Generator) -> None:
-    """Lecun-normal (truncated) conv kernels and zero conv biases."""
+    """Lecun-normal (truncated) conv and dense kernels, zero biases."""
     for m in model.modules():
-        if isinstance(m, Conv2d):
-            fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
+        if isinstance(m, (Conv2d, torch.nn.Linear)):
+            fan_in = (m.in_features if isinstance(m, torch.nn.Linear)
+                      else m.in_channels * m.kernel_size[0] * m.kernel_size[1])
             std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
             torch.nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std,
                                         generator=generator)
@@ -69,6 +78,19 @@ def create_unet(encoder_name: Optional[str] = None, classes: Optional[int] = Non
                  in_channels=in_channels or Config.IN_CHANNELS,
                  activation=activation, dtype=dtype or Config.compute_dtype(),
                  fused_eval=fused_eval)
+    init_weights_(model, torch.Generator().manual_seed(seed))
+    return model.to(dev, memory_format=torch.channels_last).eval()
+
+
+def create_discriminator(input_channels: int = 3, image_size: Optional[int] = None,
+                         seed: int = 1, dtype: Optional[torch.dtype] = None,
+                         device=None) -> DomainDiscriminator:
+    """Build a seeded image-level domain discriminator in eval mode on
+    ``device`` (default ``cuda``).  ``image_size`` is accepted for the JAX
+    signature; the port's initialization does not need a sample input."""
+    del image_size
+    dev = resolve_device(device)
+    model = DomainDiscriminator(input_channels, dtype=dtype or Config.compute_dtype())
     init_weights_(model, torch.Generator().manual_seed(seed))
     return model.to(dev, memory_format=torch.channels_last).eval()
 
@@ -100,6 +122,6 @@ def create_model(model_name: Optional[str] = None, encoder_name: Optional[str] =
     return model
 
 
-__all__ = ["ENCODERS", "ResNetEncoder", "Unet", "build_encoder", "create_model",
-           "create_unet", "encoder_out_channels", "from_jax_state_dict", "init_weights_",
+__all__ = ["ENCODERS", "DomainAdaptationModel", "DomainDiscriminator", "ResNetEncoder",
+           "Unet", "build_encoder", "create_discriminator", "create_model", "create_unet", "encoder_out_channels", "from_jax_state_dict", "init_weights_",
            "load_imagenet_encoder", "to_jax_state_dict"]

@@ -5,7 +5,8 @@ The JAX package flattens its variables to ``{'params/a/b/leaf': array,
 'batch_stats/a/b/leaf': array}``.  The port keeps the same module paths
 with three renames:
 
-- ``.../kernel`` (HWIO) -> ``....weight`` (OIHW);
+- ``.../kernel`` -> ``....weight``: a conv's HWIO becomes OIHW, a dense
+  layer's (in, out) becomes ``nn.Linear``'s (out, in);
 - the encoder's auto-named ``Conv_{i}`` / ``BatchNorm_{i}`` ->
   ``conv{i+1}`` / ``bn{i+1}`` (torchvision's names);
 - ``/`` -> ``.``.
@@ -58,10 +59,11 @@ def from_jax_state_dict(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         leaves_at.setdefault(path, set()).add(leaf)
         arr = np.asarray(value, dtype=np.float32)
         if leaf == "kernel":
-            if arr.ndim != 4:
-                raise ValueError(f"expected an HWIO kernel at {key!r}, got {arr.shape}")
-            out[f"{path}.weight"] = torch.from_numpy(
-                np.ascontiguousarray(arr.transpose(3, 2, 0, 1)))
+            if arr.ndim not in (2, 4):
+                raise ValueError(f"expected an HWIO or (in, out) kernel at {key!r}, "
+                                 f"got {arr.shape}")
+            order = (3, 2, 0, 1) if arr.ndim == 4 else (1, 0)
+            out[f"{path}.weight"] = torch.from_numpy(np.array(arr.transpose(order), order="C"))
         else:
             out[f"{path}.{leaf}"] = torch.from_numpy(arr.copy())
     for path, leaves in leaves_at.items():
@@ -86,7 +88,7 @@ def _jax_module_path(parts) -> str:
 
 def to_jax_state_dict(model: torch.nn.Module, grads: bool = False) -> Dict[str, np.ndarray]:
     """The model's parameters and BatchNorm buffers under the JAX flat keys
-    (``params/...``, ``batch_stats/...``; conv kernels back in HWIO), as
+    (``params/...``, ``batch_stats/...``; kernels back in HWIO / (in, out)), as
     float32 numpy arrays, so that two states compare key by key.
 
     With ``grads=True`` returns the parameters' ``.grad`` under the
@@ -105,7 +107,8 @@ def to_jax_state_dict(model: torch.nn.Module, grads: bool = False) -> Dict[str, 
         *parts, leaf = name.split(".")
         arr = t.detach().float().cpu().numpy().copy()   # never a view of the model
         if leaf == "weight":
-            leaf, arr = "kernel", np.ascontiguousarray(arr.transpose(2, 3, 1, 0))
+            order = (2, 3, 1, 0) if arr.ndim == 4 else (1, 0)
+            leaf, arr = "kernel", np.ascontiguousarray(arr.transpose(order))
         coll = "batch_stats" if leaf in _LEAVES["batch_stats"] else "params"
         out[f"{coll}/{_jax_module_path(parts)}/{leaf}"] = arr
     return out

@@ -1,1 +1,2 @@
-"""Step factories of the PyTorch port."""
+"""Training: states, step factories, the three phases' trainers, the phase
+lifecycle and the three-phase pipeline."""

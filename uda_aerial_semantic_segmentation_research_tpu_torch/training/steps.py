@@ -2,8 +2,11 @@
 
 Counterpart of the JAX package's ``training/steps.py``.  Ported so far:
 the phase-1 supervised train step, the eval step and the serving step
-(``make_supervised_train_step``, ``make_eval_step``, ``make_predict_step``).
-Each factory closes over the static pieces and returns an eager function.
+(``make_supervised_train_step``, ``make_eval_step``, ``make_predict_step``),
+the phase-2 adversarial step (``make_adversarial_train_step``) and the
+phase-3 unsupervised step (``make_unsupervised_train_step``); the JAX
+package's sequential twins of the last two are not ported.  Each factory
+closes over the static pieces and returns an eager function.
 Properties shared by the steps:
 
 - raw uint8 batches go straight to the device; dequantization,
@@ -16,9 +19,13 @@ Properties shared by the steps:
 
 from __future__ import annotations
 
+import copy
+
 import torch
+import torch.utils.checkpoint
 
 from uda_aerial_semantic_segmentation_research_tpu_torch.ops.augment import (
+    STRONG,
     WEAK,
     AugmentConfig,
     augment_batch,
@@ -28,6 +35,8 @@ from uda_aerial_semantic_segmentation_research_tpu_torch.ops.fused_ce import (
     fused_cross_entropy,
 )
 from uda_aerial_semantic_segmentation_research_tpu_torch.ops.losses import (
+    AdversarialLoss,
+    FineTuningLoss,
     SMPDiceLoss,
     softmax_cross_entropy,
 )
@@ -169,5 +178,224 @@ def make_predict_step(model: torch.nn.Module):
         with torch.inference_mode():
             x = normalize_images(torch.as_tensor(images, device=device))
             return model(x).float()
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# phase 2: adversarial domain adaptation (two optimizers, D then G)
+# ---------------------------------------------------------------------------
+def _to_device(device, *arrays):
+    return tuple(None if a is None else torch.as_tensor(a, device=device) for a in arrays)
+
+
+def _draws(draws, i):
+    """``(abc, params)`` of the ``i``-th augmented batch of ``draws``, or
+    ``(None, None)`` (draw from the generator)."""
+    return (None, None) if draws is None or draws[i] is None else draws[i]
+
+
+def make_adversarial_train_step(seg: torch.nn.Module, disc: torch.nn.Module,
+                                num_classes: int, lambda_adv: float = 0.001,
+                                aug_cfg: AugmentConfig = WEAK, concat_disc: bool = False):
+    """``step(state, generator, src_images, src_masks, tgt_images, draws=None)
+    -> (state, metrics)``: one discriminator update, then one segmentation
+    update, on an ``AdversarialState`` in place.
+
+    Augmentation: the source batch (with its masks), then the target batch
+    (without), each by ``augment_batch`` with ``aug_cfg``; their draws come
+    from ``generator`` in that order, or from ``draws = ((abc, params) of
+    the source, (abc, params) of the target)``.
+
+    Step A (the discriminator): D(src) then D(tgt) in train mode, so D's
+    BatchNorm statistics move twice, once per domain (``concat_disc=True``:
+    one forward over the concatenated batch, joint statistics, one move);
+    ``AdversarialLoss.discriminator_loss`` (labels 1 / 0); D's Adam update.
+
+    Step B (the generator): the U-Net in train mode on the source batch and
+    the softmax CE; D(tgt) in eval mode with the UPDATED D under
+    ``no_grad`` -- no gradient reaches D and its statistics do not move --
+    for ``generator_loss``; backward of the sum; the segmentation Adam
+    update.  As in the JAX package the discriminator sees raw images, so
+    the generator term has no gradient with respect to the segmentation
+    parameters: the U-Net's update is that of ``lambda_adv=0``.
+
+    Metrics (device tensors): ``loss``, ``seg_loss``, ``adv_loss``,
+    ``d_loss``, ``source_domain_prob`` / ``target_domain_prob`` (step A's
+    logits through a sigmoid, (B, 1)), and the segmentation metrics.
+    """
+    adv = AdversarialLoss(lambda_adv)
+
+    def step(state, generator, src_images, src_masks, tgt_images, draws=None):
+        if state.seg.model is not seg or state.disc.model is not disc:
+            raise ValueError("the state belongs to other models than the step")
+        src_images, src_masks, tgt_images = _to_device(model_device(seg), src_images,
+                                                       src_masks, tgt_images)
+        with torch.no_grad():
+            abc, params = _draws(draws, 0)
+            xs, ms = augment_batch(generator, src_images, src_masks, cfg=aug_cfg, abc=abc,
+                                   params=params)
+            abc, params = _draws(draws, 1)
+            xt, _ = augment_batch(generator, tgt_images, None, cfg=aug_cfg, abc=abc,
+                                  params=params)
+
+        d_loss, s_logit, t_logit = _adv_d_update(adv, disc, state.disc, xs, xt, concat_disc)
+        metrics = _adv_g_update(adv, seg, disc, num_classes, state.seg, xs, ms, xt)
+        metrics.update({"d_loss": d_loss, "source_domain_prob": torch.sigmoid(s_logit),
+                        "target_domain_prob": torch.sigmoid(t_logit)})
+        return state, metrics
+
+    return step
+
+
+def _adv_d_update(adv, disc, disc_state, xs, xt, concat_disc=False):
+    """Step A: one discriminator update on D(src) vs D(tgt), labels 1 / 0,
+    train mode (per-domain statistics unless ``concat_disc``).  Returns the
+    detached ``(d_loss, source logits, target logits)``."""
+    disc.train()
+    disc_state.optimizer.zero_grad(set_to_none=True)
+    if concat_disc:
+        s_logit, t_logit = disc(torch.cat([xs, xt]), return_logits=True).chunk(2)
+    else:
+        s_logit = disc(xs, return_logits=True)
+        t_logit = disc(xt, return_logits=True)
+    d_loss = adv.discriminator_loss(s_logit, t_logit)
+    d_loss.backward()
+    disc_state.apply_gradients()
+    return d_loss.detach(), s_logit.detach(), t_logit.detach()
+
+
+def _adv_g_update(adv, seg, disc, num_classes, seg_state, xs, ms, xt):
+    """Step B: one segmentation update on CE(source) + the generator BCE of
+    the UPDATED discriminator's eval-mode D(tgt), under ``no_grad``.
+    Returns the segmentation metrics with ``loss``, ``seg_loss``,
+    ``adv_loss``."""
+    seg.train()
+    seg_state.optimizer.zero_grad(set_to_none=True)
+    logits = seg(xs)
+    seg_loss = softmax_cross_entropy(logits, ms)
+    disc.eval()
+    with torch.no_grad():
+        adv_loss = adv.generator_loss(disc(xt, return_logits=True))
+    total = seg_loss + adv_loss
+    total.backward()
+    seg_state.apply_gradients()
+    with torch.no_grad():
+        metrics = _seg_metrics(logits.detach(), ms, num_classes)
+    metrics.update({"loss": total.detach(), "seg_loss": seg_loss.detach(),
+                    "adv_loss": adv_loss})
+    return metrics
+
+
+# ---------------------------------------------------------------------------
+# phase 3: unsupervised consistency fine-tuning
+# ---------------------------------------------------------------------------
+def chunked_consistency(cons_fn, rows: int = 32):
+    """``cons_fn(z1, z2)`` summed over row chunks of ``rows``, each chunk's
+    softmax transients recomputed in the backward (``torch.utils.checkpoint``).
+
+    The consistency KL is a batchmean sum over every pixel (divided by B,
+    whatever H), so the per-pixel terms add over chunks of the H axis and
+    the chunk losses sum to the whole loss to float reassociation.  The
+    region holds no BatchNorm, so recomputing it is exact.  Without chunks
+    (H <= ``rows``, or H not a multiple of it) the whole loss is one
+    checkpointed region.  Counterpart of the JAX ``_chunked_consistency``.
+    """
+
+    def run(a, b):
+        return torch.utils.checkpoint.checkpoint(cons_fn, a, b, use_reentrant=False)
+
+    def f(z1, z2):
+        h = z1.shape[1]
+        if h <= rows or h % rows:
+            return run(z1, z2)
+        acc = torch.zeros((), dtype=torch.float32, device=z1.device)
+        for a, b in zip(z1.split(rows, dim=1), z2.split(rows, dim=1)):
+            acc = acc + run(a, b)
+        return acc
+
+    return f
+
+
+def make_unsupervised_train_step(seg: torch.nn.Module, disc: torch.nn.Module,
+                                 num_classes: int, fine_tuning_loss: FineTuningLoss,
+                                 aug_cfg: AugmentConfig = STRONG,
+                                 with_supervised: bool = False):
+    """``step(state, generator, tgt_images, epoch, sup_images=None,
+    sup_masks=None, draws=None) -> (state, metrics)``: one fine-tuning
+    update of a ``TrainState`` over both models (a ``DomainAdaptationModel``,
+    ``skip_nonfinite=True``, the JAX recipe's ``adam(lr, clip_norm=1.0)``).
+
+    Inputs: two views v1, v2 of the target batch by ``augment_batch`` with
+    ``aug_cfg`` (no masks), ``x0 = normalize_images(tgt_images)``
+    un-augmented for the discriminator, and with ``with_supervised`` a
+    ``WEAK`` view of the supervised batch.  Draws from ``generator`` in the
+    order v1, v2, supervised (the JAX step's keys k1, k2, k3), or from
+    ``draws`` (a tuple of ``(abc, params)`` in that order).
+
+    Forwards, all in train mode: U-Net(v1), U-Net(v2) (its statistics move
+    twice), D(x0), and U-Net(supervised view) for the dice term.  Then
+    ``fine_tuning_loss`` (its consistency term chunked by
+    ``chunked_consistency``), one backward through both models, one clipped
+    Adam update over both.
+
+    When ``total`` is not finite, every element of the state stays
+    bit-identical: parameters, Adam moments and count, both models' BatchNorm
+    statistics (kept from before the forwards and put back by a
+    ``torch.where``), and ``state.step``.  Nothing is read back to the host.
+
+    Metrics (device tensors): the loss components, ``finite`` (a bool) and
+    ``domain_prob`` (sigmoid of D(x0), (B, 1)).
+    """
+    loss_fn = copy.copy(fine_tuning_loss)
+    loss_fn.consistency_loss = chunked_consistency(fine_tuning_loss.consistency_loss)
+
+    def step(state, generator, tgt_images, epoch, sup_images=None, sup_masks=None,
+             draws=None):
+        held = {id(p) for p in state.model.parameters()}
+        if not all(id(p) in held for m in (seg, disc) for p in m.parameters()):
+            raise ValueError("the state does not hold both models' parameters")
+        if not state.skip_nonfinite:
+            raise ValueError("the phase-3 state must be built with skip_nonfinite=True")
+        if with_supervised and (sup_images is None or sup_masks is None):
+            raise ValueError("with_supervised needs sup_images and sup_masks")
+        device = model_device(seg)
+        tgt_images, sup_images, sup_masks = _to_device(device, tgt_images, sup_images,
+                                                       sup_masks)
+        with torch.no_grad():
+            views = []
+            for i in range(2):
+                abc, params = _draws(draws, i)
+                views.append(augment_batch(generator, tgt_images, None, cfg=aug_cfg, abc=abc,
+                                           params=params)[0])
+            x0 = normalize_images(tgt_images)
+            xs = ms = None
+            if with_supervised:
+                abc, params = _draws(draws, 2)
+                xs, ms = augment_batch(generator, sup_images, sup_masks, cfg=WEAK, abc=abc,
+                                       params=params)
+            buffers = [*seg.buffers(), *disc.buffers()]
+            kept = torch._foreach_mul(buffers, 1.0)       # exact copies, one launch
+
+        seg.train()
+        disc.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        p1 = seg(views[0])
+        p2 = seg(views[1])
+        domain_logits = disc(x0, return_logits=True)
+        sup_pred = seg(xs) if with_supervised else None
+        losses = loss_fn(p1, p2, domain_logits, epoch, supervised_pred=sup_pred,
+                         supervised_target=ms)
+        losses["total"].backward()
+        finite = torch.isfinite(losses["total"])
+        state.apply_gradients(finite)
+        with torch.no_grad():
+            for b, k in zip(buffers, kept):
+                torch.where(finite, b, k, out=b)
+
+        metrics = {k: v.detach() for k, v in losses.items()}
+        metrics["finite"] = finite
+        metrics["domain_prob"] = torch.sigmoid(domain_logits.detach())
+        return state, metrics
 
     return step
