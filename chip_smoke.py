@@ -47,7 +47,10 @@
      ``torch.cuda.set_sync_debug_mode("error")`` (no host sync);
    - the sums kernels also at the discriminator's three BatchNorm inputs
      of phases 2 and 3 ((32·128², 128), (32·64², 256), (32·32², 512), bf16,
-     forward and dual, timed as above), and ``dihedral_normalize`` without
+     forward and dual, timed as above), at phase 11's BatchNorm inputs that
+     the resnet34 step lacks (the resnet50 U-Net's seven, C from 128 to 2048,
+     and the feature discriminator's (32·16², 256) and (32·16², 128); timed
+     as above; float32 at C=1024 and 2048 untimed), and ``dihedral_normalize`` without
      masks (the target batches of phases 2 and 3) at (32, 512, 512, 3) for
      each batch class, bit-exact, timed for the mixed class;
    - ``fused_cross_entropy`` at (32, 512, 512, 23) f32 and bf16, forward
@@ -78,7 +81,7 @@
    model (plain versions), WEAK in float32 with the same seeded draws
    (made once on the host);
 8. prints one JSON line of kernel results (launches summed over the main
-   paths of 4, 5, 6, 9 and 10), the card line again, and last
+   paths of 4, 5, 6, 9, 10 and 11), the card line again, and last
    ``{"ok": true, "device": {...}}``.
 9. (after 7, before 8 prints; in a spawned process of its own, whose
    launch counts 8 adds in) drives the phase-1 trainer,
@@ -125,6 +128,27 @@
    (profiler); phase 3's consistency KL alone (forward + backward, chunked
    and whole, with its byte bound); checkpoint MB and write ms per phase;
    the pipeline's wall time.
+11. (after 10, in a spawned process of its own) drives the GRL stack's
+   ``MultiPhaseTrainer`` over ``create_uda_model``'s default model -- a
+   resnet50 U-Net (23 classes, 512 px, bf16, seeded random weights) whose
+   bottleneck feeds the feature discriminator (512 / 256 / 128 channels)
+   through the gradient-reversal layer -- at B=32, one epoch a phase over
+   the in-memory tiles of phase 10 (2 steps a phase): ``phase1_train``
+   (dice), ``phase2_train`` (the sequential GRL step, ``lambda_domain``
+   0.001, WEAK; target train batches stand in for target validation),
+   ``phase3_train`` (two STRONG views, MSE + 0.1 * confusion); checkpoints in
+   a temporary directory.  Checks the BatchNorm input shapes of a traversal
+   against the census, the launches of every step (phase 1: 63 / 63 / 1 / 0;
+   phase 2: 122 / 122 / 2 / 0, the source traversal 66 and the
+   ``domain_only`` target traversal 56; phase 3: 192 / 182 / 2 / 0, ``x0``'s
+   decoder getting no gradient) and none outside the steps, and the three
+   ``phase{n}_best.pth`` reloaded through ``from_jax_state_dict`` to
+   bit-identical segmentation and domain logits.  Prints a ``multiphase``
+   line: per phase the bare step (p50 of 5 after a warm-up, CUDA events,
+   batches on the card), tiles/s, peak memory, host syncs per step, device
+   ms by kind (profiler) and the phase's wall time; checkpoint MB and write
+   ms; the trainer's wall time and phase 11's with its process.  The
+   script's own wall time is printed before the ``kernels`` line.
 
 Any failed check raises and the script exits non-zero; without a CUDA
 device it exits non-zero before printing any result.  It imports
@@ -175,6 +199,10 @@ BN_SHAPES = {(32, 16, 16, 512): 7, (32, 32, 32, 256): 15, (32, 64, 64, 128): 11,
 # M=1 on both paths, C=16 / 512 off the step's shapes, many rows
 SUMS_EDGE_SHAPES = [(3, 7, 5, 24), (1, 16), (1, 512), (1, 24), (2, 1000, 24), (4, 9, 3),
                     (5, 3, 16), (70000, 32)]
+# what the kernels line gives for each extra sums shape
+PER_SHAPE_KEYS = ("shape", "sums_ms", "dual_ms", "sums_bound_ms", "dual_bound_ms",
+                  "sums_kernel_ms", "dual_kernel_ms", "sums_plain_ms", "dual_plain_ms",
+                  "sums_library_ms", "dual_library_ms", "max_rel_err")
 # device functions grouped by name (first match wins)
 PROFILE_CATEGORIES = [
     ("conv_bn_relu kernel", ("conv_bn_relu", "fold_moments")),
@@ -1575,6 +1603,65 @@ def state_snapshot(state) -> dict:
     return snap
 
 
+def counted(step, counters, record):
+    """``step`` that appends the kernel launches of each call to ``record``."""
+    def run(*a, **k):
+        before = read_counts(counters)
+        out = step(*a, **k)
+        after = read_counts(counters)
+        record.append({key: after[key] - before[key] for key in after})
+        return out
+    return run
+
+
+def check_step_launches(label, per_step, expected, n_steps, run_counts):
+    """``n_steps[name]`` steps in each phase (the length of the loader the
+    phase iterates), exactly ``expected[name]`` launches in each, and none
+    outside the steps; prints the census."""
+    steps_run = {name: len(v) for name, v in per_step.items()}
+    print(f"main path ({label}): steps {json.dumps(steps_run)}, launches "
+          f"{json.dumps(run_counts)}", flush=True)
+    for name, runs in per_step.items():
+        if len(runs) != n_steps[name] or any(c != expected[name] for c in runs):
+            raise AssertionError(f"{name} launches per step {runs}, expected {n_steps[name]} "
+                                 f"steps of {expected[name]}")
+    outside = {k: run_counts[k] - sum(c[k] for runs in per_step.values() for c in runs)
+               for k in run_counts}
+    if any(outside.values()):
+        raise AssertionError(f"kernel launches outside the train steps: {outside}")
+    return steps_run
+
+
+def bare_step_report(fn, batches, turn) -> dict:
+    """One bare train step ``fn(batch)`` on batches already on the card: p50 of
+    5 steps after one warm-up (CUDA events), peak memory, host syncs per step
+    under ``set_sync_debug_mode("warn")``, device ms by kind (profiler)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(lambda: fn(batches[next(turn) % 2]), reps=5, warmup=1)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(2):
+                fn(batches[next(turn) % 2])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    syncs = [f"{pathlib.Path(w.filename).name}:{w.lineno}" for w in caught
+             if "called a synchronizing" in str(w.message)]
+    prof = profile_forward(lambda: fn(batches[next(turn) % 2]), reps=2)
+    return {"bare_step_ms_p50": ms, "tiles_per_s": TRAIN_BATCH / ms * 1e3,
+            "peak_mem_gib": peak_gib, "host_syncs_per_step": len(syncs) / 2,
+            "host_sync_sites": sorted(set(syncs)), "device_ms": prof.get("device_ms_per_call"),
+            "busy_share": prof.get("busy_share"), "by_category_ms": prof.get("by_category_ms")}
+
+
 def drive_pipeline(counters, card, host_rng) -> dict:
     """Phase 10: ``run_pipeline`` on the card (see main)."""
     from uda_aerial_semantic_segmentation_research_tpu_torch.config import Config
@@ -1622,17 +1709,20 @@ def drive_pipeline(counters, card, host_rng) -> dict:
     _, weights = class_balance([{c: int(n[c]) for c in np.nonzero(n)[0]} for n in counts],
                                [m.size for m in masks])
 
+    built = []
+
     def build_loaders(batch_size):
         """What ``_build_loaders`` builds from files, from the tiles above."""
         train_ds, val_ds = random_split(source, [TRAINER_TRAIN, TRAINER_TILES - TRAINER_TRAIN],
                                         seed=Config.SEED)
         w = weights[train_ds.indices]
         sampler = WeightedRandomSampler(w / w.sum(), num_samples=len(w))
-        return (DataLoader(train_ds, batch_size=batch_size, sampler=sampler, drop_last=True,
-                           num_workers=Config.NUM_WORKERS),
-                DataLoader(val_ds, batch_size=batch_size),
-                DataLoader(InMemoryTargets(targets), batch_size=batch_size, shuffle=True,
-                           drop_last=True, num_workers=Config.NUM_WORKERS))
+        built[:] = (DataLoader(train_ds, batch_size=batch_size, sampler=sampler, drop_last=True,
+                               num_workers=Config.NUM_WORKERS),
+                    DataLoader(val_ds, batch_size=batch_size),
+                    DataLoader(InMemoryTargets(targets), batch_size=batch_size, shuffle=True,
+                               drop_last=True, num_workers=Config.NUM_WORKERS))
+        return tuple(built)
 
     model = create_unet(PIPE_ENCODER, classes=CLASSES, seed=SEED, dtype=torch.bfloat16,
                         device=device)
@@ -1646,17 +1736,8 @@ def drive_pipeline(counters, card, host_rng) -> dict:
     real_factories = {name: getattr(step_lib, name) for name in STEP_FACTORIES}
 
     def counted_factory(name):
-        def make(*args, **kw):
-            step = real_factories[name](*args, **kw)
-
-            def counted(*a, **k):
-                before = read_counts(counters)
-                out = step(*a, **k)
-                after = read_counts(counters)
-                per_step[name].append({key: after[key] - before[key] for key in after})
-                return out
-            return counted
-        return make
+        return lambda *args, **kw: counted(real_factories[name](*args, **kw), counters,
+                                           per_step[name])
 
     saved = []
     real_save = pm_mod.PhaseManager.save_checkpoint
@@ -1706,18 +1787,9 @@ def drive_pipeline(counters, card, host_rng) -> dict:
             for name, fn in real_factories.items():
                 setattr(step_lib, name, fn)
 
-        # launches: exact per step, none outside the steps
-        steps_run = {name: len(v) for name, v in per_step.items()}
-        print(f"main path (pipeline): steps {json.dumps(steps_run)}, launches "
-              f"{json.dumps(run_counts)}", flush=True)
-        for name, runs in per_step.items():
-            if len(runs) != TRAINER_TRAIN // TRAIN_BATCH or any(c != expected[name] for c in runs):
-                raise AssertionError(f"{name} launches per step {runs}, "
-                                     f"expected {expected[name]}")
-        outside = {k: run_counts[k] - sum(c[k] for runs in per_step.values() for c in runs)
-                   for k in run_counts}
-        if any(outside.values()):
-            raise AssertionError(f"kernel launches outside the train steps: {outside}")
+        # phases 1 and 2 iterate the source train loader, phase 3 the target one
+        n_steps = dict(zip(STEP_FACTORIES, (len(built[0]), len(built[0]), len(built[2]))))
+        steps_run = check_step_launches("pipeline", per_step, expected, n_steps, run_counts)
 
         # the summary and the experiment's metadata
         if set(summary["phases"]) != {"segmentation", "adversarial", "fine_tuning"} \
@@ -1760,11 +1832,7 @@ def drive_pipeline(counters, card, host_rng) -> dict:
         disc.load_state_dict(from_jax_state_dict(load_checkpoint(saved[-1]["path"])[
             "discriminator_state_dict"]), strict=True)
 
-    # the bare step of each phase on the final models, batches on the card:
-    # p50 of 5 steps after one warm-up, peak memory, host syncs under
-    # set_sync_debug_mode("warn")
-    import warnings
-
+    # the bare step of each phase on the final models (bare_step_report)
     dev = [tuple(torch.from_numpy(a).to(device) for a in (
         images[i:i + TRAIN_BATCH], masks[i:i + TRAIN_BATCH].astype(np.uint8),
         targets[i:i + TRAIN_BATCH])) for i in (0, TRAIN_BATCH)]
@@ -1793,32 +1861,8 @@ def drive_pipeline(counters, card, host_rng) -> dict:
         "make_adversarial_train_step": lambda b: adv(adv_state, gen, b[0], b[1], b[2]),
         "make_unsupervised_train_step": lambda b: unsup(unsup_state, gen, b[2], 1.0)}
     phase_of = dict(zip(STEP_FACTORIES, ("phase1", "phase2", "phase3")))
-    per_phase = {}
-    for name, fn in bare.items():
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        ms = time_ms(lambda: fn(dev[next(turn) % 2]), reps=5, warmup=1)
-        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-        torch.cuda.synchronize()
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                for _ in range(2):
-                    fn(dev[next(turn) % 2])
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-        torch.cuda.synchronize()
-        syncs = [f"{pathlib.Path(w.filename).name}:{w.lineno}" for w in caught
-                 if "called a synchronizing" in str(w.message)]
-        prof = profile_forward(lambda: fn(dev[next(turn) % 2]), reps=2)
-        per_phase[phase_of[name]] = {
-            "bare_step_ms_p50": ms, "tiles_per_s": TRAIN_BATCH / ms * 1e3,
-            "launches_per_step": per_step[name][0], "peak_mem_gib": peak_gib,
-            "host_syncs_per_step": len(syncs) / 2, "host_sync_sites": sorted(set(syncs)),
-            "device_ms": prof.get("device_ms_per_call"), "busy_share": prof.get("busy_share"),
-            "by_category_ms": prof.get("by_category_ms")}
+    per_phase = {phase_of[name]: bare_step_report(fn, dev, turn)
+                 | {"launches_per_step": per_step[name][0]} for name, fn in bare.items()}
 
     # phase 3's consistency KL alone, forward and backward at the step's
     # logits shape: chunked (as the step runs it) and whole; its byte bound
@@ -1887,6 +1931,226 @@ def pipeline_phase(card) -> dict:
         return pool.apply(_pipeline_child, (card,))
 
 
+# the multi-phase phase: MultiPhaseTrainer over the GRL model at its default
+# width (resnet50 U-Net + feature discriminator), one epoch a phase at B=32
+# over the in-memory tiles of phase 10: 2 steps in each phase
+MULTI_ENCODER = "resnet50"
+# the BatchNorm inputs of the resnet50 U-Net (NHWC shape: BatchNorms, encoder
+# and decoder) and of the feature discriminator at 512 px, B=32
+UDA_UNET_BN_SHAPES = {
+    (32, 256, 256, 64): 1, (32, 128, 128, 64): 8, (32, 128, 128, 256): 4,
+    (32, 128, 128, 128): 1, (32, 64, 64, 128): 9, (32, 64, 64, 512): 5,
+    (32, 64, 64, 256): 1, (32, 32, 32, 256): 13, (32, 32, 32, 1024): 7,
+    (32, 32, 32, 512): 1, (32, 16, 16, 512): 5, (32, 16, 16, 2048): 4,
+    (32, 256, 256, 32): 2, (32, 512, 512, 16): 2}
+UDA_HEAD_BN_SHAPES = [(32, 16, 16, 512), (32, 16, 16, 256), (32, 16, 16, 128)]
+MULTI_PHASES = ("phase1", "phase2", "phase3")
+
+
+def multiphase_expected_launches(n_encoder_bn: int, n_decoder_bn: int, n_head_bn: int) -> dict:
+    """Kernel launches per train step of each phase of ``MultiPhaseTrainer``:
+    one ``channel_sums`` per train-mode BatchNorm forward, one
+    ``channel_dual_sums`` per BatchNorm that the backward reaches, one
+    ``dihedral_normalize`` per augmented batch (phase 3's ``x0`` is
+    normalized without it)."""
+    unet, head = n_encoder_bn + n_decoder_bn, n_head_bn
+
+    def counts(forward, backward, dihedral):
+        return {"conv_bn_relu": 0, "channel_sums": forward, "channel_dual_sums": backward,
+                "dihedral_normalize": dihedral, "fused_cross_entropy": 0}
+    return {
+        # the U-Net on the source batch, dice
+        "phase1": counts(unet, unet, 1),
+        # source: U-Net + head; target: encoder + head (domain_only)
+        "phase2": counts(unet + head + n_encoder_bn + head,
+                         unet + head + n_encoder_bn + head, 2),
+        # v1, v2: U-Net; x0: U-Net + head forward, its decoder gets no gradient
+        "phase3": counts(3 * unet + head, 2 * unet + n_encoder_bn + head, 2)}
+
+
+def drive_multiphase(counters, card, host_rng) -> dict:
+    """Phase 11: ``MultiPhaseTrainer`` on the card (see main)."""
+    from uda_aerial_semantic_segmentation_research_tpu_torch.config import Config
+    from uda_aerial_semantic_segmentation_research_tpu_torch.data.dataset import random_split
+    from uda_aerial_semantic_segmentation_research_tpu_torch.data.loader import DataLoader
+    from uda_aerial_semantic_segmentation_research_tpu_torch.models import (
+        create_uda_model,
+        from_jax_state_dict,
+    )
+    from uda_aerial_semantic_segmentation_research_tpu_torch.ops.augment import (
+        normalize_images,
+    )
+    from uda_aerial_semantic_segmentation_research_tpu_torch.ops.batch_norm import BatchNorm
+    from uda_aerial_semantic_segmentation_research_tpu_torch.training import (
+        MultiPhaseTrainer,
+        steps as step_lib,
+    )
+    from uda_aerial_semantic_segmentation_research_tpu_torch.training.state import (
+        TrainState,
+        adam,
+    )
+    from uda_aerial_semantic_segmentation_research_tpu_torch.utils.checkpoint import (
+        load_checkpoint,
+    )
+
+    device = torch.device(PIPE_DEVICE)
+    images = host_rng.integers(0, 256, (TRAINER_TILES, TILE, TILE, 3), dtype=np.uint8)
+    masks = host_rng.integers(0, CLASSES, (TRAINER_TILES, TILE, TILE)).astype(np.int32)
+    targets = np.clip(host_rng.integers(0, 256, (PIPE_TARGETS, TILE, TILE, 3))
+                      * 0.7 + 40.0, 0, 255).astype(np.uint8)
+    train_ds, val_ds = random_split(InMemoryTiles(images, masks),
+                                    [TRAINER_TRAIN, TRAINER_TILES - TRAINER_TRAIN],
+                                    seed=Config.SEED)
+    train_loader = DataLoader(train_ds, batch_size=TRAIN_BATCH, shuffle=True, drop_last=True,
+                              num_workers=Config.NUM_WORKERS)
+    val_loader = DataLoader(val_ds, batch_size=TRAIN_BATCH)
+    target_loader = DataLoader(InMemoryTargets(targets), batch_size=TRAIN_BATCH, shuffle=True,
+                               drop_last=True, num_workers=Config.NUM_WORKERS)
+
+    model = create_uda_model(MULTI_ENCODER, classes=CLASSES, seed=SEED, dtype=torch.bfloat16,
+                             device=device)
+    n_bn = {part: sum(isinstance(m, BatchNorm) for m in module.modules()) for part, module in
+            (("encoder", model.net.encoder), ("decoder", model.net.decoder),
+             ("head", model.domain_discriminator))}
+    expected = multiphase_expected_launches(n_bn["encoder"], n_bn["decoder"], n_bn["head"])
+    probe = torch.from_numpy(images[-2:]).to(device)             # two validation tiles
+
+    def outputs(m):
+        """Eval-mode segmentation and domain logits of ``m`` on the probe tiles."""
+        seg = step_lib.make_predict_step(m)(probe)
+        with torch.inference_mode():
+            d = m(normalize_images(probe), domain_adaptation=True, domain_only=True)[1]
+        return seg.clone(), d.clone()
+
+    # the BatchNorm input shapes of one traversal (eval mode: the same shapes
+    # as a train-mode one, and no statistics move)
+    unet_shapes, head_shapes = collections.Counter(), []
+    nhwc = lambda inp: tuple(inp[0].permute(0, 2, 3, 1).shape)
+    hooks = [m.register_forward_pre_hook(lambda mod, inp: unet_shapes.update([nhwc(inp)]))
+             for m in model.net.modules() if isinstance(m, BatchNorm)]
+    hooks += [m.register_forward_pre_hook(lambda mod, inp: head_shapes.append(nhwc(inp)))
+              for m in model.domain_discriminator.modules() if isinstance(m, BatchNorm)]
+    with torch.inference_mode():
+        model.eval()(normalize_images(torch.from_numpy(images[:TRAIN_BATCH]).to(device)),
+                     domain_adaptation=True)
+    for h in hooks:
+        h.remove()
+    if dict(unet_shapes) != UDA_UNET_BN_SHAPES or head_shapes != UDA_HEAD_BN_SHAPES:
+        raise AssertionError(f"BatchNorm inputs {dict(unet_shapes)} {head_shapes}")
+
+    per_step = {name: [] for name in MULTI_PHASES}
+    saved, phase_wall_s = [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = MultiPhaseTrainer(model, device=device, checkpoint_dir=os.path.join(tmp, "ckpt"),
+                                    num_classes=CLASSES, log_dir=os.path.join(tmp, "logs"))
+
+        raw_builders = (trainer._phase1_step, trainer._phase2_step, trainer._phase3_step)
+        for name, build in zip(MULTI_PHASES, raw_builders):
+            setattr(trainer, f"_{name}_step",
+                    lambda _b=build, _n=name: counted(_b(), counters, per_step[_n]))
+        real_save = trainer._save_best
+
+        def save_and_snapshot(phase, metrics):
+            """The phase checkpoint, timed, with the live model's outputs on the
+            probe tiles at that moment."""
+            t0 = time.perf_counter()
+            real_save(phase, metrics)
+            write_ms = (time.perf_counter() - t0) * 1e3
+            path = trainer.checkpoint_dir / f"phase{phase}_best.pth"
+            saved.append({"phase": phase, "path": str(path), "write_ms": write_ms,
+                          "mb": os.path.getsize(path) / 1e6, "outputs": outputs(model)})
+
+        trainer._save_best = save_and_snapshot
+        torch.cuda.synchronize()
+        reset_counts(counters)
+        t_start = time.perf_counter()
+        results = {}
+        for name, run in (
+                ("phase1", lambda: trainer.phase1_train(train_loader, val_loader, epochs=1,
+                                                        learning_rate=1e-4)),
+                ("phase2", lambda: trainer.phase2_train(train_loader, target_loader,
+                                                        val_loader, epochs=1,
+                                                        learning_rate=5e-5)),
+                ("phase3", lambda: trainer.phase3_train(target_loader, val_loader, epochs=1,
+                                                        learning_rate=1e-5))):
+            t0 = time.perf_counter()
+            results[name] = run()
+            torch.cuda.synchronize()
+            phase_wall_s[name] = time.perf_counter() - t0
+        wall_s = time.perf_counter() - t_start
+        run_counts = read_counts(counters)
+
+        # phases 1 and 2 iterate the source train loader, phase 3 the target one
+        n_steps = dict(zip(MULTI_PHASES, (len(train_loader), len(train_loader),
+                                          len(target_loader))))
+        steps_run = check_step_launches("multiphase", per_step, expected, n_steps, run_counts)
+        if not all(np.isfinite(v) for v in results.values()) or not 0 <= results["phase1"] <= 1:
+            raise AssertionError(f"phase results {results}")
+
+        # every phase's best checkpoint reloads bit for bit
+        if [s["phase"] for s in saved] != [1, 2, 3]:
+            raise AssertionError(f"phase checkpoints {[s['phase'] for s in saved]}")
+        for s in saved:
+            ckpt = load_checkpoint(s["path"])
+            if set(ckpt) != {"model_state_dict", "metrics", "phase"} or ckpt["phase"] != s["phase"]:
+                raise AssertionError(f"phase {s['phase']} checkpoint holds {sorted(ckpt)}")
+            reloaded = create_uda_model(MULTI_ENCODER, classes=CLASSES, seed=SEED + 1,
+                                        dtype=torch.bfloat16, device=device)
+            reloaded.load_state_dict(from_jax_state_dict(ckpt["model_state_dict"]), strict=True)
+            got = outputs(reloaded)
+            if not all(torch.equal(a, b) for a, b in zip(got, s.pop("outputs"))):
+                raise AssertionError(f"phase {s['phase']}: the reloaded model's outputs differ")
+            del reloaded, ckpt
+
+        # the bare step of each phase on the final model (bare_step_report)
+        dev = [tuple(torch.from_numpy(a).to(device) for a in (
+            images[i:i + TRAIN_BATCH], masks[i:i + TRAIN_BATCH].astype(np.uint8),
+            targets[i:i + TRAIN_BATCH])) for i in (0, TRAIN_BATCH)]
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        turn = itertools.count()
+        raw = {name: build() for name, build in zip(MULTI_PHASES, raw_builders)}
+        lrs = {"phase1": 1e-4, "phase2": 5e-5, "phase3": 1e-5}
+        states = {name: TrainState(model, adam(lr)) for name, lr in lrs.items()}
+        bare = {
+            "phase1": lambda b: raw["phase1"](states["phase1"], gen, b[0], b[1]),
+            "phase2": lambda b: raw["phase2"](states["phase2"], gen, b[0], b[1], b[2], 1.0),
+            "phase3": lambda b: raw["phase3"](states["phase3"], gen, b[2])}
+        per_phase = {name: bare_step_report(fn, dev, turn)
+                     | {"launches_per_step": per_step[name][0], "wall_s": phase_wall_s[name]}
+                     for name, fn in bare.items()}
+
+    result = {
+        "model": f"UDASegmentationModel: {MULTI_ENCODER} U-Net, {CLASSES} classes, "
+                 f"+ FeatureDomainDiscriminator (512/256/128)",
+        "dtype": "bfloat16", "batch": TRAIN_BATCH, "tile": TILE,
+        "data": f"{TRAINER_TILES} source tiles (split {TRAINER_TRAIN} / "
+                f"{TRAINER_TILES - TRAINER_TRAIN}), {PIPE_TARGETS} target tiles, in memory",
+        "epochs_per_phase": 1, "steps": steps_run,
+        "phase2_step": "make_grl_sequential_step (lambda_domain 0.001, WEAK)",
+        "phase3_step": "MultiPhaseTrainer._phase3_step (STRONG, mse + 0.1 * confusion)",
+        "batch_norms": n_bn, "expected_launches_per_step": expected,
+        "phases": per_phase, "phase_results": results, "launches": run_counts,
+        "checkpoints": [{k: s[k] for k in ("phase", "mb", "write_ms")} for s in saved],
+        "checkpoints_reload_bit_identical": True,
+        "multiphase_wall_s": wall_s, "card": card}
+    del model, trainer, states, raw, bare, dev
+    torch.cuda.empty_cache()
+    return result
+
+
+def _multiphase_child(card) -> dict:
+    return drive_multiphase(kernel_counters(), card, np.random.default_rng(SEED + 11))
+
+
+def multiphase_phase(card) -> dict:
+    """Phase 11 in a fresh process of its own (spawned, as phases 9 and 10)."""
+    import multiprocessing
+
+    torch.cuda.empty_cache()
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        return pool.apply(_multiphase_child, (card,))
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--probe-batch", type=int, default=None,
@@ -1900,6 +2164,7 @@ def main(argv=None) -> int:
                         help="only time the dihedral_normalize kernel against the one "
                              "built from this (older) source, at the train step's shape")
     args = parser.parse_args(argv)
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -2193,6 +2458,19 @@ def main(argv=None) -> int:
     sums_launch_checks = check_sums_launches(sums_ops, gen)
     disc_sums_results = [check_sums(sums_ops, gen, shape, torch.bfloat16, timed=True)
                          for shape in DISC_BN_SHAPES]
+    # phase 11's BatchNorm inputs that the resnet34 step does not have: the
+    # resnet50 U-Net's and the feature discriminator's (its 512-channel input
+    # is the resnet34 step's (32, 16, 16, 512), timed above); float32 at
+    # C >= 1024 takes the generic path
+    sums_by_shape = {tuple(r["shape"]): r for r in sums_results}
+    for shape in sorted(set(UDA_UNET_BN_SHAPES) | set(UDA_HEAD_BN_SHAPES)):
+        if shape not in sums_by_shape:
+            sums_by_shape[shape] = check_sums(sums_ops, gen, shape, torch.bfloat16, timed=True)
+    resnet50_sums_results = [sums_by_shape[s] for s in sorted(UDA_UNET_BN_SHAPES)
+                             if s not in BN_SHAPES]
+    head_sums_results = [sums_by_shape[s] for s in UDA_HEAD_BN_SHAPES]
+    for shape in [(32, 16, 16, 2048), (32, 32, 32, 1024)]:
+        check_sums(sums_ops, gen, shape, torch.float32, timed=False)
     dihedral_result = check_dihedral(dihedral_ops, host_rng)
     dihedral_no_masks = check_dihedral_no_masks(dihedral_ops, host_rng)
     augment_results = time_augment_batch(augment, dihedral_ops, host_rng, card)
@@ -2257,9 +2535,17 @@ def main(argv=None) -> int:
     pipeline_counts = pipeline_result["launches"]
     print(json.dumps({"pipeline": pipeline_result}), flush=True)
 
+    # 11. the GRL stack: MultiPhaseTrainer at resnet50, one epoch a phase over
+    #     the same in-memory tiles, in a process of its own
+    t0 = time.perf_counter()
+    multiphase_result = multiphase_phase(card)
+    multiphase_result["process_wall_s"] = time.perf_counter() - t0      # spawn to result
+    multiphase_counts = multiphase_result["launches"]
+    print(json.dumps({"multiphase": multiphase_result}), flush=True)
+
     # 8. results
     total = {k: serving_counts[k] + train_counts[k] + eval_counts[k] + trainer_counts[k]
-             + pipeline_counts[k] for k in counters}
+             + pipeline_counts[k] + multiphase_counts[k] for k in counters}
     if min(total.values()) == 0:
         raise AssertionError(f"a kernel never launched on the main paths: {total}")
     src = f"{PORT}/csrc"
@@ -2292,8 +2578,10 @@ def main(argv=None) -> int:
         "launches_backward": total["channel_dual_sums"],
         "device_kernels_per_call": sums_launch_checks["device_kernels_per_call"],
         "host_us_per_call": sums_launch_checks["host_us_per_call"],
-        "max_abs_err": max(r["max_abs_err"] for r in sums_results + disc_sums_results),
-        "max_rel_err": max(r["max_rel_err"] for r in sums_results + disc_sums_results),
+        "max_abs_err": max(r["max_abs_err"] for r in
+                           sums_results + disc_sums_results + list(sums_by_shape.values())),
+        "max_rel_err": max(r["max_rel_err"] for r in
+                           sums_results + disc_sums_results + list(sums_by_shape.values())),
         # 20 launches per event pair over rotating cold copies of the inputs
         "ms": per_step("sums_ms") + per_step("dual_ms"),
         "forward_ms": per_step("sums_ms"), "backward_ms": per_step("dual_ms"),
@@ -2322,10 +2610,15 @@ def main(argv=None) -> int:
             "dual_library_ms")} | {"batch_norms": BN_SHAPES[tuple(r["shape"])]}
             for r in sums_results],
         # the discriminator's three BatchNorm inputs (phases 2 and 3), one each
-        "discriminator_per_shape": [{k: r[k] for k in (
-            "shape", "sums_ms", "dual_ms", "sums_bound_ms", "dual_bound_ms",
-            "sums_kernel_ms", "dual_kernel_ms", "sums_plain_ms", "dual_plain_ms",
-            "sums_library_ms", "dual_library_ms", "max_rel_err")} for r in disc_sums_results],
+        "discriminator_per_shape": [{k: r[k] for k in PER_SHAPE_KEYS}
+                                    for r in disc_sums_results],
+        # phase 11: the resnet50 U-Net's BatchNorm inputs that the resnet34 step
+        # lacks, and the feature discriminator's three
+        "resnet50_per_shape": [{k: r[k] for k in PER_SHAPE_KEYS}
+                               | {"batch_norms": UDA_UNET_BN_SHAPES[tuple(r["shape"])]}
+                               for r in resnet50_sums_results],
+        "feature_discriminator_per_shape": [{k: r[k] for k in PER_SHAPE_KEYS}
+                                            for r in head_sums_results],
     }, {
         "name": "dihedral_normalize", "route": "cuda",
         "source": f"{src}/dihedral_normalize.cu",
@@ -2353,6 +2646,8 @@ def main(argv=None) -> int:
         "plain_ms": ce32["plain_fwd_bwd_ms"], "bound_ms": ce32["bound_ms"],
         "bound_by": ce32["bound_by"], "library_ms": ce32["library_fwd_bwd_ms"],
     }]
+    print(f"chip_smoke wall time: {time.perf_counter() - t_script:.1f} s (phase 11 with "
+          f"its process: {multiphase_result['process_wall_s']:.1f} s)", flush=True)
     print(json.dumps({"kernels": entries}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -7,7 +7,8 @@ zero-initialized last norm of each residual block), and returns it in
 eval mode on the device.  ``create_model`` selects the architecture by
 name, as the JAX package's does; the port has the U-Net so far.
 ``create_discriminator`` builds the image-level domain discriminator the
-same way.
+same way, and ``create_uda_model`` the GRL stack's ``UDASegmentationModel``
+(resnet50 by default, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -37,6 +38,12 @@ from uda_aerial_semantic_segmentation_research_tpu_torch.models.resnet import (
     ResNetEncoder,
     build_encoder,
     encoder_out_channels,
+)
+from uda_aerial_semantic_segmentation_research_tpu_torch.models.uda import (
+    FeatureDomainDiscriminator,
+    UDALoss,
+    UDASegmentationModel,
+    gradient_reverse_layer,
 )
 from uda_aerial_semantic_segmentation_research_tpu_torch.models.unet import Unet
 from uda_aerial_semantic_segmentation_research_tpu_torch.utils.device import (
@@ -95,6 +102,22 @@ def create_discriminator(input_channels: int = 3, image_size: Optional[int] = No
     return model.to(dev, memory_format=torch.channels_last).eval()
 
 
+def create_uda_model(encoder_name: str = "resnet50", classes: Optional[int] = None,
+                     image_size: Optional[int] = None, seed: int = 0,
+                     dtype: Optional[torch.dtype] = None, device=None) -> UDASegmentationModel:
+    """Build a seeded ``UDASegmentationModel`` (U-Net + feature discriminator)
+    in eval mode on ``device`` (default ``cuda``), without ImageNet weights,
+    as the JAX ``create_uda_model``.  ``image_size`` is accepted for the JAX
+    signature; the port's initialization does not need a sample input."""
+    del image_size
+    dev = resolve_device(device)
+    model = UDASegmentationModel(encoder_name=encoder_name,
+                                 classes=classes or Config.NUM_CLASSES,
+                                 dtype=dtype or Config.compute_dtype())
+    init_weights_(model, torch.Generator().manual_seed(seed))
+    return model.to(dev, memory_format=torch.channels_last).eval()
+
+
 # architectures of the JAX package's create_model that the port lacks yet
 _NOT_PORTED = ("UnetPlusPlus", "FPN", "PSPNet", "Linknet", "DeepLabV3Plus", "PAN", "MAnet")
 
@@ -122,6 +145,9 @@ def create_model(model_name: Optional[str] = None, encoder_name: Optional[str] =
     return model
 
 
-__all__ = ["ENCODERS", "DomainAdaptationModel", "DomainDiscriminator", "ResNetEncoder",
-           "Unet", "build_encoder", "create_discriminator", "create_model", "create_unet", "encoder_out_channels", "from_jax_state_dict", "init_weights_",
-           "load_imagenet_encoder", "to_jax_state_dict"]
+__all__ = ["ENCODERS", "DomainAdaptationModel", "DomainDiscriminator",
+           "FeatureDomainDiscriminator", "ResNetEncoder", "UDALoss", "UDASegmentationModel",
+           "Unet", "build_encoder", "create_discriminator", "create_model", "create_uda_model",
+           "create_unet", "encoder_out_channels", "from_jax_state_dict",
+           "gradient_reverse_layer", "init_weights_", "load_imagenet_encoder",
+           "to_jax_state_dict"]

@@ -15,7 +15,9 @@ space-to-depth packing is a TPU lane trick, numerically a plain conv,
 and is not ported.
 
 ``Unet.forward`` takes NHWC input and returns float32 NHWC logits;
-inside, tensors are NCHW views in channels_last memory.
+inside, tensors are NCHW views in channels_last memory.  ``encode`` /
+``decode`` split it at the encoder pyramid (kept NCHW), for the
+feature-level domain discriminator of ``models.uda``.
 """
 
 from __future__ import annotations
@@ -121,10 +123,22 @@ class Unet(nn.Module):
                                    decoder_channels, dtype, fused_eval)
         self.segmentation_head = conv(decoder_channels[-1], classes, 3, bias=True)
 
+    def encode(self, x):
+        """(B, H, W, in_channels) -> the encoder pyramid ``[identity, /2, /4,
+        /8, /16, /32]`` in the internal NCHW form (channels_last memory)."""
+        return self.encoder.features(x.permute(0, 3, 1, 2))
+
+    def _logits(self, features):
+        return self.segmentation_head(self.decoder(features)).float()
+
+    def decode(self, features):
+        """The pyramid of ``encode`` -> float32 logits (B, H, W, classes),
+        before any ``activation`` (the JAX ``Unet.decode``)."""
+        return self._logits(features).permute(0, 2, 3, 1).contiguous()
+
     def forward(self, x):
         """(B, H, W, in_channels) -> float32 logits (B, H, W, classes)."""
-        feats = self.encoder.features(x.permute(0, 3, 1, 2))
-        y = self.segmentation_head(self.decoder(feats)).float()
+        y = self._logits(self.encode(x))
         if self.activation == "softmax":
             y = torch.softmax(y, dim=1)
         elif self.activation == "sigmoid":

@@ -3,9 +3,11 @@
 Counterpart of the JAX package's ``training/steps.py``.  Ported so far:
 the phase-1 supervised train step, the eval step and the serving step
 (``make_supervised_train_step``, ``make_eval_step``, ``make_predict_step``),
-the phase-2 adversarial step (``make_adversarial_train_step``) and the
-phase-3 unsupervised step (``make_unsupervised_train_step``); the JAX
-package's sequential twins of the last two are not ported.  Each factory
+the phase-2 adversarial step (``make_adversarial_train_step``), the
+phase-3 unsupervised step (``make_unsupervised_train_step``) and the GRL
+stack's steps (``make_grl_sequential_step``, with ``make_grl_train_step``
+its alias, and ``make_grl_eval_step``); the JAX package's sequential twins of the
+adversarial and unsupervised steps are not ported.  Each factory
 closes over the static pieces and returns an eager function.
 Properties shared by the steps:
 
@@ -38,6 +40,7 @@ from uda_aerial_semantic_segmentation_research_tpu_torch.ops.losses import (
     AdversarialLoss,
     FineTuningLoss,
     SMPDiceLoss,
+    sigmoid_bce_with_logits,
     softmax_cross_entropy,
 )
 from uda_aerial_semantic_segmentation_research_tpu_torch.ops.metrics import (
@@ -397,5 +400,130 @@ def make_unsupervised_train_step(seg: torch.nn.Module, disc: torch.nn.Module,
         metrics["finite"] = finite
         metrics["domain_prob"] = torch.sigmoid(domain_logits.detach())
         return state, metrics
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# the GRL stack: one model, one optimizer, the domain head behind a GRL
+# ---------------------------------------------------------------------------
+def _grl_seg_loss(seg_loss: str):
+    _check_seg_loss(seg_loss)
+    return SMPDiceLoss() if seg_loss == "dice" else softmax_cross_entropy
+
+
+def _grl_inputs(model, generator, src_images, src_masks, tgt_images, aug_cfg, draws):
+    """The source batch (with masks) and the target batch (without) on the
+    model's device, each through ``augment_batch``, drawing in that order."""
+    src_images, src_masks, tgt_images = _to_device(model_device(model), src_images,
+                                                   src_masks, tgt_images)
+    with torch.no_grad():
+        abc, params = _draws(draws, 0)
+        xs, ms = augment_batch(generator, src_images, src_masks, cfg=aug_cfg, abc=abc,
+                               params=params)
+        abc, params = _draws(draws, 1)
+        xt, _ = augment_batch(generator, tgt_images, None, cfg=aug_cfg, abc=abc,
+                              params=params)
+    return xs, ms, xt
+
+
+def _domain_acc(d_src, d_tgt):
+    """Logit-sign accuracy over both domains; ``d_src >= 0`` counts as
+    correct for the source (the JAX steps' rule)."""
+    return 0.5 * ((d_src >= 0).float().mean() + (d_tgt < 0).float().mean())
+
+
+def _grl_metrics(seg, ms, num_classes, total, seg_loss, domain_loss, domain_acc):
+    with torch.no_grad():
+        metrics = _seg_metrics(seg.detach(), ms, num_classes)
+    metrics.update({"loss": total.detach(), "seg_loss": seg_loss.detach(),
+                    "domain_loss": domain_loss.detach(), "domain_acc": domain_acc})
+    return metrics
+
+
+def make_grl_sequential_step(model: torch.nn.Module, num_classes: int,
+                             lambda_domain: float = 1.0, aug_cfg: AugmentConfig = WEAK,
+                             seg_loss: str = "dice"):
+    """``step(state, generator, src_images, src_masks, tgt_images, alpha,
+    draws=None) -> (state, metrics)``: one Adam update of a ``TrainState``
+    over a ``UDASegmentationModel`` on ``seg + lambda_domain * (bce(d_src, 1)
+    + bce(d_tgt, 0)) / 2``.
+
+    The loss is additive across the two traversals, ``seg(src) + lam/2 *
+    bce(d_src, 1) + lam/2 * bce(d_tgt, 0)``, so the source terms' backward
+    runs (and frees the source graph) before the target traversal, whose
+    backward accumulates into the same ``.grad``; then one Adam step.  Peak
+    memory holds one traversal's activations.  Both traversals run in
+    train mode, so the BatchNorm statistics move source first, then target.
+    The target traversal is ``domain_only``: its segmentation would enter
+    no loss, so skipping the decoder leaves the update exact and only the
+    decoder's statistics miss the target batch.  ``alpha`` (a float or a
+    0-d device tensor) scales the reversed gradient.  ``seg_loss``:
+    ``"dice"`` (``SMPDiceLoss``, the default) or ``"ce"``.  Draws: source
+    then target from ``generator``, or ``draws = ((abc, params) of the
+    source, (abc, params) of the target)``.
+
+    Metrics (device tensors): ``loss``, ``seg_loss``, ``domain_loss``,
+    ``domain_acc`` and the segmentation metrics.
+    """
+    seg_loss_fn = _grl_seg_loss(seg_loss)
+    lam = lambda_domain
+
+    def step(state, generator, src_images, src_masks, tgt_images, alpha, draws=None):
+        if state.model is not model:
+            raise ValueError("the state belongs to another model than the step")
+        xs, ms, xt = _grl_inputs(model, generator, src_images, src_masks, tgt_images,
+                                 aug_cfg, draws)
+        model.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        seg, d_src = model(xs, domain_adaptation=True, alpha=alpha)
+        sl = seg_loss_fn(seg, ms)
+        dl_src = sigmoid_bce_with_logits(d_src, torch.ones_like(d_src))
+        (sl + (lam / 2.0) * dl_src).backward()
+        seg, d_src, sl, dl_src = seg.detach(), d_src.detach(), sl.detach(), dl_src.detach()
+
+        d_tgt = model(xt, domain_adaptation=True, alpha=alpha, domain_only=True)[1]
+        dl_tgt = sigmoid_bce_with_logits(d_tgt, torch.zeros_like(d_tgt))
+        ((lam / 2.0) * dl_tgt).backward()
+        state.apply_gradients()
+        domain_loss = (dl_src + dl_tgt.detach()) / 2.0
+        return state, _grl_metrics(seg, ms, num_classes, sl + lam * domain_loss, sl,
+                                   domain_loss, _domain_acc(d_src, d_tgt.detach()))
+
+    return step
+
+
+# The JAX package's single-backward GRL step exists beside its sequential
+# twin because XLA compiles the two differently; eagerly they are one
+# update (up to float reassociation), so the port keeps one body.
+make_grl_train_step = make_grl_sequential_step
+
+
+def make_grl_eval_step(model: torch.nn.Module, num_classes: int, lambda_domain: float = 0.001,
+                       seg_loss: str = "dice"):
+    """``step(src_images, src_masks, tgt_images) -> metrics``: the GRL
+    stack's phase-2 validation.  Eval mode throughout (no statistics
+    move); the source batch runs the whole model, the target batch runs
+    ``domain_only``.  ``loss = seg + lambda_domain * (bce(d_src, 1) +
+    bce(d_tgt, 0)) / 2``; metrics as ``make_grl_train_step``'s, with
+    ``domain_acc`` over both validation batches.
+    """
+    seg_loss_fn = _grl_seg_loss(seg_loss)
+    lam = lambda_domain
+
+    def step(src_images, src_masks, tgt_images):
+        src_images, src_masks, tgt_images = _to_device(model_device(model), src_images,
+                                                       src_masks, tgt_images)
+        model.eval()
+        with torch.inference_mode():
+            seg, d_src = model(normalize_images(src_images), domain_adaptation=True)
+            d_tgt = model(normalize_images(tgt_images), domain_adaptation=True,
+                          domain_only=True)[1]
+            ms = src_masks.to(torch.int32)
+            sl = seg_loss_fn(seg, ms)
+            domain_loss = (sigmoid_bce_with_logits(d_src, torch.ones_like(d_src))
+                           + sigmoid_bce_with_logits(d_tgt, torch.zeros_like(d_tgt))) / 2.0
+            return _grl_metrics(seg, ms, num_classes, sl + lam * domain_loss, sl, domain_loss,
+                                _domain_acc(d_src, d_tgt))
 
     return step
