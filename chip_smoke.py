@@ -81,7 +81,7 @@
    model (plain versions), WEAK in float32 with the same seeded draws
    (made once on the host);
 8. prints one JSON line of kernel results (launches summed over the main
-   paths of 4, 5, 6, 9, 10 and 11), the card line again, and last
+   paths of 4, 5, 6, 9, 10, 11 and 12), the card line again, and last
    ``{"ok": true, "device": {...}}``.
 9. (after 7, before 8 prints; in a spawned process of its own, whose
    launch counts 8 adds in) drives the phase-1 trainer,
@@ -147,8 +147,30 @@
    line: per phase the bare step (p50 of 5 after a warm-up, CUDA events,
    batches on the card), tiles/s, peak memory, host syncs per step, device
    ms by kind (profiler) and the phase's wall time; checkpoint MB and write
-   ms; the trainer's wall time and phase 11's with its process.  The
-   script's own wall time is printed before the ``kernels`` line.
+   ms; the trainer's wall time and phase 11's with its process.
+12. (after 11, in a spawned process of its own) runs the port's system test
+   CLI, ``test_system.test_system()``, with all 14 suites at the Config
+   defaults (resnet34 U-Net, 23 classes, 256 px, B=8, bf16, the default
+   ``ENCODER_WEIGHTS="imagenet"`` without a converted file: a warning, the
+   seeded weights) in a temporary working directory, over the fixtures that
+   the port's ``setup_test_data`` writes there with cv2.  Requires ``True``
+   and 14 ✓.  Counts the five kernels' launches per suite and per train step:
+   every step of the three trainers exactly as in phase 10 (46 / 46 / 1 / 0,
+   52 / 52 / 2 / 0, 95 / 95 / 2 / 0; phase 3 at B=1), and outside the steps
+   only one ``dihedral_normalize`` per item augmentation (a dataset's
+   transform), no ``conv_bn_relu`` and no ``fused_cross_entropy``.  Then:
+   the ``model_io`` file (JAX layout) reloaded through
+   ``from_jax_state_dict`` gives bit-identical logits; ``log_model_graph``
+   wrote ``model/structure`` and ``model/graph``; ``predict_mask`` on the
+   card equals a CPU copy of the model in float32 outside the band
+   |p - 0.5| < 1e-4 (the count in the band is printed); the sums kernels
+   against their plain versions at every train-mode BatchNorm input of the
+   run (untimed, phase 3's tolerance) and ``dihedral_normalize`` bit-exact
+   at (8 / 2 / 1, 256, 256, 3) with no, uint8 and int32 masks.  Prints a
+   ``system`` line: per suite ✓, wall s, launches, steps and item
+   augmentations; the run's launches, peak memory, ``test_system``'s wall
+   time and phase 12's with its process.  The script's own wall time is
+   printed before the ``kernels`` line.
 
 Any failed check raises and the script exits non-zero; without a CUDA
 device it exits non-zero before printing any result.  It imports
@@ -170,6 +192,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -2151,6 +2174,304 @@ def multiphase_phase(card) -> dict:
         return pool.apply(_multiphase_child, (card,))
 
 
+# the system phase: the port's test_system CLI, all 14 suites at the Config
+# defaults (resnet34 U-Net, 23 classes, 256 px, B=8, bf16) over the synthetic
+# fixtures of setup_test_data (10 source tiles split 8 / 2, 8 target tiles)
+SYSTEM_DEVICE, SYSTEM_ENCODER = "cuda", "resnet34"
+SYSTEM_TILE, SYSTEM_BATCH, SYSTEM_SOURCE, SYSTEM_TARGETS = 256, 8, 10, 8
+
+
+def system_steps() -> dict:
+    """suite -> (its train step's factory, the steps it runs): phase 1 two
+    epochs over the 8 training tiles, phase 2 two epochs over all 10 source
+    tiles, phase 3 one epoch over the 8 target tiles at B=1 (``drop_last``)."""
+    return {"training": ("make_supervised_train_step",
+                         2 * -(-int(0.8 * SYSTEM_SOURCE) // SYSTEM_BATCH)),
+            "adversarial_training": ("make_adversarial_train_step",
+                                     2 * -(-SYSTEM_SOURCE // SYSTEM_BATCH)),
+            "unsupervised_training": ("make_unsupervised_train_step", SYSTEM_TARGETS)}
+
+
+# the dihedral_normalize inputs of the CLI: the steps' batches (B=8, the
+# remainder 2, B=1 in phase 3) and the per-item augmentations (B=1, int32 masks)
+SYSTEM_DIHEDRAL = [(b, masks) for b in (8, 2, 1) for masks in (None, torch.uint8, torch.int32)]
+PREDICT_BAND = 1e-4
+
+
+def check_sums_quietly(ops, gen, shape, dtype) -> dict:
+    """``check_sums`` untimed, its report line kept off the output."""
+    import contextlib
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        return check_sums(ops, gen, shape, dtype, timed=False)
+
+
+def check_dihedral_at(ops, host_rng, b, mask_dtype) -> int:
+    """dihedral_normalize vs its plain version at (b, 256, 256, 3), bit-exact,
+    for four seeded flag draws and ``normalize`` both ways; returns the calls."""
+    images = torch.from_numpy(host_rng.integers(0, 256, (b, SYSTEM_TILE, SYSTEM_TILE, 3),
+                                                dtype=np.uint8)).cuda()
+    masks = None if mask_dtype is None else torch.from_numpy(host_rng.integers(
+        0, CLASSES, (b, SYSTEM_TILE, SYSTEM_TILE)).astype(np.int32)).cuda().to(mask_dtype)
+    calls = 0
+    for _ in range(4):
+        flags = torch.from_numpy(host_rng.integers(0, 8, b).astype(np.int32)).cuda()
+        for normalize in (False, True):
+            x, m = ops.dihedral_normalize(images, flags, masks, normalize=normalize)
+            x_ref, m_ref = ops.dihedral_normalize_reference(images, flags, masks,
+                                                            normalize=normalize)
+            calls += 1
+            if not torch.equal(x, x_ref) or (masks is not None and not torch.equal(m, m_ref)):
+                raise AssertionError(f"dihedral_normalize is not bit-exact at ({b}, "
+                                     f"{SYSTEM_TILE}, {SYSTEM_TILE}, 3), masks {mask_dtype}")
+    return calls
+
+
+def drive_system(counters, card, host_rng) -> dict:
+    """Phase 12: the port's ``test_system`` CLI on the card (see main)."""
+    import contextlib
+    import io
+    import warnings
+
+    from uda_aerial_semantic_segmentation_research_tpu_torch import test_system as ts
+    from uda_aerial_semantic_segmentation_research_tpu_torch.config import Config
+    from uda_aerial_semantic_segmentation_research_tpu_torch.inference import predict
+    from uda_aerial_semantic_segmentation_research_tpu_torch.models import (
+        create_discriminator,
+        create_unet,
+        from_jax_state_dict,
+        to_jax_state_dict,
+    )
+    from uda_aerial_semantic_segmentation_research_tpu_torch.ops import (
+        augment,
+        channel_sums as sums_ops,
+        dihedral as dihedral_ops,
+    )
+    from uda_aerial_semantic_segmentation_research_tpu_torch.ops.batch_norm import BatchNorm
+    from uda_aerial_semantic_segmentation_research_tpu_torch.training import steps as step_lib
+    from uda_aerial_semantic_segmentation_research_tpu_torch.utils.checkpoint import (
+        load_checkpoint,
+    )
+    from uda_aerial_semantic_segmentation_research_tpu_torch.visualization.tensorboard_logger import (
+        read_events,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False        # the float32 predict_mask parity below
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for key in [k for k in os.environ if k.startswith("UDA_TPU_")]:
+        del os.environ[key]                        # the Config defaults, no converted weights
+    n_unet_bn = sum(isinstance(m, BatchNorm) for m in
+                    create_unet(SYSTEM_ENCODER, classes=CLASSES, device="cpu").modules())
+    n_disc_bn = sum(isinstance(m, BatchNorm) for m in create_discriminator(device="cpu").modules())
+    expected = pipeline_expected_launches(n_unet_bn, n_disc_bn)
+    probe = torch.from_numpy(host_rng.integers(0, 256, (2, SYSTEM_TILE, SYSTEM_TILE, 3),
+                                               dtype=np.uint8)).to(SYSTEM_DEVICE)
+
+    # step launches (the trainers build their steps through these factories)
+    per_step = {name: [] for name in STEP_FACTORIES}
+    real_factories = {name: getattr(step_lib, name) for name in STEP_FACTORIES}
+    counted_factory = lambda name: lambda *a, **k: counted(real_factories[name](*a, **k),
+                                                           counters, per_step[name])
+    # per-item augmentations (one dihedral_normalize each)
+    item_calls, item_lock = [0], threading.Lock()
+    real_item_call = augment.Augmentation.__call__
+
+    def item_call(self, *a, **k):
+        with item_lock:
+            item_calls[0] += 1
+        return real_item_call(self, *a, **k)
+
+    # per suite: launches, steps, item augmentations, wall time, and the
+    # snapshots the checks below need
+    suites, snap = {}, {}
+    real_suites = {name: getattr(ts.TestSuites, f"{name}_suite") for name in ts.ALL_SUITE_NAMES}
+
+    def recorded(name):
+        def run(*args):
+            before, steps0 = read_counts(counters), {k: len(v) for k, v in per_step.items()}
+            items0, threads0 = item_calls[0], set(threading.enumerate())
+            t0 = time.perf_counter()
+            out = real_suites[name](*args)
+            # a loader abandoned after its first batch (``next(iter(loader))``)
+            # leaves its producer thread fetching the next batch: wait for it,
+            # so that its item augmentations count in this suite
+            for thread in set(threading.enumerate()) - threads0:
+                thread.join(timeout=120)
+            torch.cuda.synchronize()
+            after = read_counts(counters)
+            ok = out[0] if isinstance(out, tuple) else out
+            suites[name] = {"ok": bool(ok), "wall_s": time.perf_counter() - t0,
+                            "launches": {k: after[k] - before[k] for k in after},
+                            "steps": {k: len(v) - steps0[k] for k, v in per_step.items()
+                                      if len(v) > steps0[k]},
+                            "item_augmentations": item_calls[0] - items0}
+            if name == "model_io" and ok:
+                snap["model_io_logits"] = step_lib.make_predict_step(args[0])(probe).clone()
+            if name == "prediction" and ok:
+                snap["prediction_state"] = to_jax_state_dict(args[0])
+                snap["val_image"] = args[1].dataset.load_raw(args[1].indices[0])[0]
+            return out
+        return staticmethod(run)
+
+    # the BatchNorm inputs of the run that reach the sums kernels (train mode)
+    bn_inputs = collections.Counter()
+
+    def bn_hook(module, inputs):
+        if isinstance(module, BatchNorm) and module.training:
+            x = inputs[0]
+            bn_inputs[(tuple(x.permute(0, 2, 3, 1).shape), x.dtype)] += 1
+
+    buf = io.StringIO()
+    old_cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        for name in STEP_FACTORIES:
+            setattr(step_lib, name, counted_factory(name))
+        for name in ts.ALL_SUITE_NAMES:
+            setattr(ts.TestSuites, f"{name}_suite", recorded(name))
+        augment.Augmentation.__call__ = item_call
+        hook = torch.nn.modules.module.register_module_forward_pre_hook(bn_hook)
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(counters)
+            t0 = time.perf_counter()
+            with warnings.catch_warnings(record=True) as caught, contextlib.redirect_stdout(buf):
+                warnings.simplefilter("always")
+                ok = ts.test_system(device=SYSTEM_DEVICE)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            run_counts = read_counts(counters)
+            peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        finally:
+            hook.remove()
+            augment.Augmentation.__call__ = real_item_call
+            for name, fn in real_suites.items():
+                setattr(ts.TestSuites, f"{name}_suite", staticmethod(fn))
+            for name, fn in real_factories.items():
+                setattr(step_lib, name, fn)
+            os.chdir(old_cwd)
+        log = buf.getvalue()
+        summary = [line.split() for line in log.splitlines()
+                   if line.startswith("  ✓ ") or line.startswith("  ✗ ")]
+        if not ok or summary != [["✓", name] for name in ts.ALL_SUITE_NAMES] \
+                or any(not suites[name]["ok"] for name in ts.ALL_SUITE_NAMES):
+            print(log[-6000:], flush=True)
+            raise AssertionError(f"test_system: {summary}")
+        config = {"encoder": Config.ENCODER_NAME, "classes": Config.NUM_CLASSES,
+                  "tile": Config.IMAGE_SIZE, "batch": Config.BATCH_SIZE,
+                  "dtype": Config.COMPUTE_DTYPE, "device": Config.DEVICE}
+        if config != {"encoder": SYSTEM_ENCODER, "classes": CLASSES, "tile": SYSTEM_TILE,
+                      "batch": SYSTEM_BATCH, "dtype": "bfloat16", "device": SYSTEM_DEVICE}:
+            raise AssertionError(f"test_system ran at {config}")
+        imagenet_warnings = sum("encoder stays randomly initialized" in str(w.message)
+                                for w in caught)
+
+        # the step census, and no launch outside the steps but one
+        # dihedral_normalize per item augmentation
+        n_steps = dict(system_steps().values())
+        n_items = sum(rec["item_augmentations"] for rec in suites.values())
+        steps_run = check_step_launches(
+            f"system, less the {n_items} item augmentations", per_step, expected, n_steps,
+            {k: run_counts[k] - n_items * (k == "dihedral_normalize") for k in run_counts})
+        for name, rec in suites.items():
+            in_steps = collections.Counter()
+            for factory, n in rec["steps"].items():
+                for c in per_step[factory][:n]:
+                    in_steps.update(c)
+            outside = {k: rec["launches"][k] - in_steps[k] for k in rec["launches"]}
+            want = {k: rec["item_augmentations"] * (k == "dihedral_normalize") for k in outside}
+            if outside != want or (name in system_steps()) != bool(rec["steps"]):
+                raise AssertionError(f"suite {name}: launches outside the steps {outside}, "
+                                     f"expected {want}; steps {rec['steps']}")
+        if run_counts["conv_bn_relu"] or run_counts["fused_cross_entropy"]:
+            raise AssertionError(f"the CLI launched {run_counts}")
+
+        # the model_io file reloads (JAX layout, from_jax_state_dict) bit for bit
+        path = pathlib.Path(tmp) / Config.CHECKPOINTS_DIR / "test_checkpoint" / "test_model.pth"
+        reloaded = create_unet(SYSTEM_ENCODER, classes=CLASSES, seed=SEED + 1,
+                               device=SYSTEM_DEVICE)
+        reloaded.load_state_dict(from_jax_state_dict(load_checkpoint(path)), strict=True)
+        if not torch.equal(step_lib.make_predict_step(reloaded)(probe), snap["model_io_logits"]):
+            raise AssertionError("the model_io checkpoint does not reload bit for bit")
+        model_io_mb = os.path.getsize(path) / 1e6
+        del reloaded
+
+        # log_model_graph traced the model on the card
+        graph_file = next((pathlib.Path(tmp) / "test_logs").glob("*/events.out.tfevents.*"))
+        graph_tags = sorted({v["tag"] for e in read_events(graph_file) for v in e["values"]
+                             if v["tag"].startswith("model/")})
+        if graph_tags != ["model/graph/text_summary", "model/structure/text_summary"]:
+            raise AssertionError(f"log_model_graph wrote {graph_tags}")
+
+    # predict_mask on the card against a CPU copy, both float32, outside the
+    # band |p - 0.5| < 1e-4 of the CPU probabilities
+    masks, probs = [], None
+    for device in (SYSTEM_DEVICE, "cpu"):
+        m32 = create_unet(SYSTEM_ENCODER, classes=CLASSES, dtype=torch.float32, device=device)
+        m32.load_state_dict(from_jax_state_dict(snap["prediction_state"]), strict=True)
+        masks.append(predict.predict_mask(m32, snap["val_image"], device=device))
+        if device == "cpu":
+            x = torch.from_numpy(predict._prepare_input(snap["val_image"], SYSTEM_TILE))
+            with torch.inference_mode():
+                probs = torch.sigmoid(m32(x)).numpy()[0]
+        del m32
+    clear = np.abs(probs - 0.5) >= PREDICT_BAND
+    differ = masks[0] != masks[1]
+    mismatched = int(differ[clear].sum())
+    if masks[0].shape != (SYSTEM_TILE, SYSTEM_TILE, CLASSES) or mismatched:
+        raise AssertionError(f"predict_mask on the card differs from the CPU at {mismatched} "
+                             f"values outside the band")
+
+    # the sums kernels at every BatchNorm input of the run, dihedral_normalize
+    # at the CLI's batches
+    gen = torch.Generator(device=SYSTEM_DEVICE).manual_seed(SEED + 12)
+    sums = [check_sums_quietly(sums_ops, gen, shape, dtype) for shape, dtype in sorted(
+        bn_inputs, key=lambda k: (k[0], str(k[1])))]
+    dihedral_calls = sum(check_dihedral_at(dihedral_ops, host_rng, b, mask_dtype)
+                         for b, mask_dtype in SYSTEM_DIHEDRAL)
+    result = {
+        "config": config, "ok": True,
+        "suites": {name: {"ok": "✓" if rec["ok"] else "✗", "wall_s": rec["wall_s"],
+                          "launches": rec["launches"], "steps": rec["steps"],
+                          "item_augmentations": rec["item_augmentations"]}
+                   for name, rec in suites.items()},
+        "steps": steps_run, "expected_launches_per_step": expected, "launches": run_counts,
+        "peak_mem_gib": peak_gib, "test_system_wall_s": wall_s,
+        "imagenet_missing_warnings": imagenet_warnings,
+        "model_io_reload_bit_identical": True, "model_io_mb": model_io_mb,
+        "log_model_graph_tags": graph_tags,
+        "predict_mask_card_vs_cpu_f32": {
+            "values": int(probs.size), "in_band": int((~clear).sum()), "band": PREDICT_BAND,
+            "mismatched_outside_band": mismatched,
+            "mismatched_in_band": int(differ[~clear].sum())},
+        "sums_checked": [{"shape": r["shape"], "dtype": r["dtype"],
+                          "batch_norms": bn_inputs[(tuple(r["shape"]), getattr(torch, r["dtype"]))],
+                          "max_rel_err": r["max_rel_err"], "max_abs_err": r["max_abs_err"]}
+                         for r in sums],
+        "sums_tolerance": "1e-5 * sum|terms|; two launches bit-identical",
+        "dihedral_checked": {"shapes": [[b, SYSTEM_TILE, SYSTEM_TILE, 3, dtype_name(m) if m
+                                         else None] for b, m in SYSTEM_DIHEDRAL],
+                             "calls": dihedral_calls, "tolerance": "bit-exact"},
+        "card": card}
+    torch.cuda.empty_cache()
+    return result
+
+
+def _system_child(card) -> dict:
+    return drive_system(kernel_counters(), card, np.random.default_rng(SEED + 12))
+
+
+def system_phase(card) -> dict:
+    """Phase 12 in a fresh process of its own (spawned, as phases 9-11)."""
+    import multiprocessing
+
+    torch.cuda.empty_cache()
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        return pool.apply(_system_child, (card,))
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--probe-batch", type=int, default=None,
@@ -2543,9 +2864,17 @@ def main(argv=None) -> int:
     multiphase_counts = multiphase_result["launches"]
     print(json.dumps({"multiphase": multiphase_result}), flush=True)
 
+    # 12. the test_system CLI: all 14 suites at the Config defaults, in a
+    #     temporary working directory, in a process of its own
+    t0 = time.perf_counter()
+    system_result = system_phase(card)
+    system_result["process_wall_s"] = time.perf_counter() - t0          # spawn to result
+    system_counts = system_result["launches"]
+    print(json.dumps({"system": system_result}), flush=True)
+
     # 8. results
     total = {k: serving_counts[k] + train_counts[k] + eval_counts[k] + trainer_counts[k]
-             + pipeline_counts[k] + multiphase_counts[k] for k in counters}
+             + pipeline_counts[k] + multiphase_counts[k] + system_counts[k] for k in counters}
     if min(total.values()) == 0:
         raise AssertionError(f"a kernel never launched on the main paths: {total}")
     src = f"{PORT}/csrc"
@@ -2647,7 +2976,8 @@ def main(argv=None) -> int:
         "bound_by": ce32["bound_by"], "library_ms": ce32["library_fwd_bwd_ms"],
     }]
     print(f"chip_smoke wall time: {time.perf_counter() - t_script:.1f} s (phase 11 with "
-          f"its process: {multiphase_result['process_wall_s']:.1f} s)", flush=True)
+          f"its process: {multiphase_result['process_wall_s']:.1f} s, phase 12: "
+          f"{system_result['process_wall_s']:.1f} s)", flush=True)
     print(json.dumps({"kernels": entries}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

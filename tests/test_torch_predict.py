@@ -135,9 +135,11 @@ def test_predict_raster_matches_jax(models):
     _assert_labels_agree(pred, full)
 
 
-def test_predict_raster_rejects_paths(models):
-    with pytest.raises(TypeError):
-        predict_raster(models[1], "image.png", device="cpu")
+def test_predict_raster_rejects_paths(models, tmp_path):
+    """A path is read with cv2 (tests/test_torch_inference.py holds it against
+    the array input); one that names no readable image is refused."""
+    with pytest.raises(ValueError, match="Failed to load image"):
+        predict_raster(models[1], str(tmp_path / "image.png"), device="cpu")
 
 
 def test_predict_batch_without_device_raises_without_cuda(models, monkeypatch):

@@ -491,6 +491,7 @@ def test_port_trains_without_the_jax_trainers_host_packages(tmp_path, trainer_ru
     modules = sorted(".".join(f.relative_to(root).with_suffix("").parts)
                      for f in (root / PORT).rglob("*.py"))
     assert f"{PORT}.training.train" in modules and f"{PORT}.data.loader" in modules
+    assert f"{PORT}.test_system" in modules and f"{PORT}.inference.predict" in modules
     jax_ckpt = trainer_runs["jax"]["events"].parents[2] / "checkpoints" / "best_model.pth"
     code = _BLOCKED_RUN.format(blocked=BLOCKED, modules=modules, port=PORT,
                                logs=str(tmp_path / "logs"), ckpt=str(tmp_path / "ckpt"),

@@ -68,25 +68,35 @@ def init_weights_(model: torch.nn.Module, generator: torch.Generator) -> None:
                 m.bias.zero_()
 
 
-def create_unet(encoder_name: Optional[str] = None, classes: Optional[int] = None,
-                in_channels: Optional[int] = None,
-                activation: Optional[str] = None, seed: int = 0,
-                dtype: Optional[torch.dtype] = None, device=None,
+def create_unet(encoder_name: Optional[str] = None, encoder_weights: Optional[str] = None,
+                in_channels: Optional[int] = None, classes: Optional[int] = None,
+                activation: Optional[str] = None, image_size: Optional[int] = None,
+                seed: int = 0, dtype: Optional[torch.dtype] = None, device=None,
                 fused_eval: bool = False) -> Unet:
     """Build a seeded U-Net in eval mode on ``device`` (default ``cuda``).
 
-    ``dtype`` is the compute dtype (parameters stay float32);
-    ``fused_eval`` routes the low-channel decoder blocks through the
-    ``conv_bn_relu`` kernel in eval mode.
+    The arguments up to ``dtype`` sit where the JAX ``create_unet`` has
+    them.  ``encoder_weights="imagenet"`` then loads the local converted
+    encoder checkpoint (``models.pretrained``; without the file a warning
+    says that the encoder keeps its seeded weights).  ``image_size`` is
+    accepted for the JAX signature; the port's initialization does not need
+    a sample input.  ``dtype`` is the compute dtype (parameters stay
+    float32); ``fused_eval`` routes the low-channel decoder blocks through
+    the ``conv_bn_relu`` kernel in eval mode.
     """
+    del image_size
     dev = resolve_device(device)
-    model = Unet(encoder_name=encoder_name or Config.ENCODER_NAME,
+    encoder_name = encoder_name or Config.ENCODER_NAME
+    model = Unet(encoder_name=encoder_name,
                  classes=classes or Config.NUM_CLASSES,
                  in_channels=in_channels or Config.IN_CHANNELS,
                  activation=activation, dtype=dtype or Config.compute_dtype(),
                  fused_eval=fused_eval)
     init_weights_(model, torch.Generator().manual_seed(seed))
-    return model.to(dev, memory_format=torch.channels_last).eval()
+    model = model.to(dev, memory_format=torch.channels_last).eval()
+    if encoder_weights == "imagenet":
+        load_imagenet_encoder(model, encoder_name)
+    return model
 
 
 def create_discriminator(input_channels: int = 3, image_size: Optional[int] = None,
@@ -127,8 +137,8 @@ def create_model(model_name: Optional[str] = None, encoder_name: Optional[str] =
                  classes: Optional[int] = None, seed: int = 0,
                  dtype: Optional[torch.dtype] = None, device=None, **arch_kwargs) -> Unet:
     """By-name architecture factory (defaults from ``Config``).  ``"Unet"``
-    builds on ``create_unet``; ``encoder_weights="imagenet"`` then loads the
-    local converted encoder checkpoint (``models.pretrained``)."""
+    builds on ``create_unet``, which loads the local converted encoder
+    checkpoint for ``encoder_weights="imagenet"`` (``models.pretrained``)."""
     model_name = model_name or Config.MODEL_NAME
     encoder_name = encoder_name or Config.ENCODER_NAME
     if model_name in _NOT_PORTED:
@@ -138,11 +148,8 @@ def create_model(model_name: Optional[str] = None, encoder_name: Optional[str] =
     if model_name != "Unet":
         raise ValueError(f"Unknown model '{model_name}'; "
                          f"available: {sorted(_NOT_PORTED + ('Unet',))}")
-    model = create_unet(encoder_name, classes=classes, in_channels=in_channels, seed=seed,
-                        dtype=dtype, device=device, **arch_kwargs)
-    if encoder_weights == "imagenet":
-        load_imagenet_encoder(model, encoder_name)
-    return model
+    return create_unet(encoder_name, encoder_weights, in_channels=in_channels,
+                       classes=classes, seed=seed, dtype=dtype, device=device, **arch_kwargs)
 
 
 __all__ = ["ENCODERS", "DomainAdaptationModel", "DomainDiscriminator",

@@ -1,8 +1,9 @@
 """Task losses of the PyTorch port.
 
-Counterpart of the JAX package's ``ops/losses.py``.  Ported so far:
-``sigmoid_bce_with_logits``, ``softmax_cross_entropy``, ``AdversarialLoss``,
-``ConsistencyLoss``, ``DiceLoss``, ``SMPDiceLoss`` and ``FineTuningLoss``.
+Counterpart of the JAX package's ``ops/losses.py``: ``sigmoid_bce_with_logits``,
+``softmax_cross_entropy``, ``AdversarialLoss``, ``ConsistencyLoss``,
+``DiceLoss``, ``SMPDiceLoss``, ``WeightedSegmentationLoss``,
+``calculate_class_weights`` (numpy) and ``FineTuningLoss``.
 Reductions accumulate in float32 whatever the input dtype; segmentation
 logits are channel-last ``(..., C)``; discriminators produce LOGITS and the
 adversarial losses are logit-BCE (the JAX package's documented convention).
@@ -155,6 +156,74 @@ class SMPDiceLoss:
             cardinality + self.smooth, self.eps)
         present = (targets.sum(dim=dims) > 0).to(torch.float32)
         return ((1.0 - score) * present).mean()
+
+
+class WeightedSegmentationLoss:
+    """Class-weighted focal + dice combination, times ``domain_weight``.
+
+    The JAX package's quirk is kept: ``pt = exp(-ce)`` is taken from the
+    *class-weighted* CE, so the focal modulation also sees the weights.  The
+    focal term is computed in float32; a label outside ``[0, C)`` has an
+    all-zero one-hot (zero CE, zero weight)."""
+
+    def __init__(self, num_classes: int, class_weights=None,
+                 alpha: float = 0.25, gamma: float = 2.0, reduction: str = "mean"):
+        self.num_classes = num_classes
+        self.class_weights = (torch.ones(num_classes, dtype=torch.float32)
+                              if class_weights is None
+                              else torch.as_tensor(np.asarray(class_weights), dtype=torch.float32))
+        self.alpha = float(alpha)
+        self.gamma = float(gamma)
+        self.reduction = reduction
+        self.dice_loss = DiceLoss()
+
+    def focal_loss(self, logits, targets):
+        logits = to_f32(logits)
+        logp = torch.log_softmax(logits, dim=-1)
+        onehot = one_hot_nhwc(targets, logits.shape[-1])
+        nll = -(logp * onehot).sum(-1)
+        ce = nll * (self.class_weights.to(logits.device) * onehot).sum(-1)
+        pt = torch.exp(-ce)
+        focal = self.alpha * (1.0 - pt) ** self.gamma * ce
+        return focal.mean() if self.reduction == "mean" else focal.sum()
+
+    def __call__(self, logits, targets, domain_weight: float = 1.0):
+        focal = self.focal_loss(logits, targets)
+        dice = self.dice_loss(logits, one_hot_nhwc(targets, self.num_classes))
+        return domain_weight * (focal + dice)
+
+
+def calculate_class_weights(dataset, num_classes: int,
+                            method: str = "effective_samples") -> np.ndarray:
+    """Per-class weights from pixel frequencies (numpy, float32).
+
+    Reads the ``class_stats`` dict that ``DroneDataset`` computes when the
+    dataset has one, else counts the masks of every ``(image, mask)`` item.
+    ``"effective_samples"``: ``(1 - beta) / (1 - beta**count)`` with beta =
+    0.9999; any other method: ``1 / count``; counts are clipped at 1 and the
+    weights normalized to sum to ``num_classes``.
+    """
+    counts = np.zeros(num_classes, dtype=np.float64)
+    stats = getattr(dataset, "class_stats", None)
+    if stats:
+        for cls, c in stats.items():
+            if 0 <= int(cls) < num_classes:
+                counts[int(cls)] += c
+    else:
+        for _, mask in dataset:
+            m = mask.cpu().numpy() if isinstance(mask, torch.Tensor) else np.asarray(mask)
+            binc = np.bincount(m.reshape(-1), minlength=num_classes)
+            counts += binc[:num_classes]
+
+    counts = np.clip(counts, 1.0, None)
+    if method == "effective_samples":
+        beta = 0.9999
+        effective = 1.0 - np.power(beta, counts)
+        weights = (1.0 - beta) / effective
+    else:
+        weights = 1.0 / counts
+    weights = weights / weights.sum() * num_classes
+    return weights.astype(np.float32)
 
 
 class FineTuningLoss:

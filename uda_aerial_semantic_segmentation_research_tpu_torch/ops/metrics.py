@@ -2,14 +2,15 @@
 host accumulators.
 
 Counterpart of ``confusion_matrix``, ``iou_from_hist``,
-``accuracy_from_hist``, ``binary_entropy`` and ``DomainAdaptationMetrics``
-in the JAX package's ``ops/metrics.py``.  The JAX
+``accuracy_from_hist``, ``binary_entropy``, ``DomainAdaptationMetrics`` and
+``SegmentationMetrics`` in the JAX package's ``ops/metrics.py``.  The JAX
 function builds the histogram as a one-hot matrix product because a
 scatter-add serializes on the TPU; on the GPU it is an integer scatter-add,
 exact at any pixel count, spread over ``_ROWS`` private histograms so that
 a dominant class does not pile every atomic onto one address.  Nothing here
 reads a value back to the host, except ``DomainAdaptationMetrics``, whose
-accumulators are numpy on the host by design.
+accumulators are numpy on the host by design, and ``SegmentationMetrics``,
+which finishes its scores in float64 on the host.
 """
 
 from __future__ import annotations
@@ -135,3 +136,55 @@ class DomainAdaptationMetrics:
             "domain_entropy": self.domain_entropy_sum / max(self.n_batches, 1),
             "feature_alignment": self.feature_alignment_sum / max(self.n_batches, 1),
         }
+
+
+def _tensor(x) -> torch.Tensor:
+    return x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
+
+
+class SegmentationMetrics:
+    """Histogram-based IoU / pixel accuracy / F1 with an optional
+    ``ignore_index``.  The histogram (``confusion_matrix``) and the pixel
+    counts are taken on the device the inputs lie on; the scores are
+    finished in float64 on the host."""
+
+    def __init__(self, num_classes: int, ignore_index: Optional[int] = None):
+        self.num_classes = num_classes
+        self.ignore_index = ignore_index
+
+    def _hist(self, predictions, targets) -> np.ndarray:
+        hist = confusion_matrix(_tensor(predictions), _tensor(targets), self.num_classes,
+                                self.ignore_index)
+        return hist.cpu().numpy().astype(np.float64)
+
+    def batch_iou(self, predictions, targets) -> dict:
+        """``{"mean_iou", "class_iou"}``: the mean over the classes present in
+        either map (NaN for the absent ones, then ``nanmean``), 0.0 when none is."""
+        hist = self._hist(predictions, targets)
+        tp = np.diag(hist)
+        denom = hist.sum(axis=1) + hist.sum(axis=0) - tp + 1e-7
+        iu = tp / denom
+        present = (hist.sum(axis=1) + hist.sum(axis=0)) > 0
+        iu_masked = np.where(present, iu, np.nan)
+        mean_iou = float(np.nanmean(iu_masked)) if present.any() else 0.0
+        return {"mean_iou": mean_iou,
+                "class_iou": {i: float(v) for i, v in enumerate(iu)}}
+
+    def pixel_accuracy(self, predictions, targets) -> float:
+        p, t = _tensor(predictions), _tensor(targets)
+        mask = (t != self.ignore_index) if self.ignore_index is not None \
+            else torch.ones_like(t, dtype=torch.bool)
+        correct = float(((p.to(t.device) == t) & mask).sum().item())
+        total = float(mask.sum().item())
+        return correct / (total + 1e-7)
+
+    def f1_score(self, predictions, targets, class_index: Optional[int] = None):
+        """Per-class F1 as a list, or the one of ``class_index``."""
+        hist = self._hist(predictions, targets)
+        tp = np.diag(hist)
+        fp = hist.sum(axis=0) - tp
+        fn = hist.sum(axis=1) - tp
+        f1 = 2 * tp / (2 * tp + fp + fn + 1e-7)
+        if class_index is not None:
+            return float(f1[class_index])
+        return f1.tolist()

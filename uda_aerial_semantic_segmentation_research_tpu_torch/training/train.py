@@ -48,6 +48,7 @@ from uda_aerial_semantic_segmentation_research_tpu_torch.config import Config
 from uda_aerial_semantic_segmentation_research_tpu_torch.data.loader import (
     prefetch_to_device,
 )
+from uda_aerial_semantic_segmentation_research_tpu_torch.data.verify_csv import read_csv
 from uda_aerial_semantic_segmentation_research_tpu_torch.models.convert import (
     to_jax_state_dict,
 )
@@ -81,16 +82,6 @@ from uda_aerial_semantic_segmentation_research_tpu_torch.visualization.tensorboa
 _CURVE_PIXEL_CAP = 20_000
 
 
-def _column(values: List[str]):
-    """A CSV column typed as pandas would read it: all ints, all floats, or strings."""
-    for kind in (int, float):
-        try:
-            return [kind(v) for v in values]
-        except ValueError:
-            continue
-    return values
-
-
 def load_class_dict():
     """The class-color CSV at ``<DATA_DIR>/class_dict_seg.csv`` as
     ``{column: {row: value}}`` (what ``pandas.read_csv(...,
@@ -98,17 +89,14 @@ def load_class_dict():
     read."""
     csv_path = os.path.join(Config.DATA_DIR, "class_dict_seg.csv")
     try:
-        with open(csv_path, newline="") as f:
-            rows = [r for r in csv.reader(f, skipinitialspace=True) if r]
-        header, body = rows[0], rows[1:]
-        table = {name: dict(enumerate(_column([r[j] for r in body])))
-                 for j, name in enumerate(header)}
+        header, rows = read_csv(csv_path)
     except (OSError, csv.Error, IndexError) as e:
         print(f"Error loading class dictionary: {e}")
         return None
+    table = {name: {i: row[j] for i, row in enumerate(rows)} for j, name in enumerate(header)}
     print("\nLoaded class mapping:")
-    for i in range(len(body)):
-        print("  " + ", ".join(f"{name}={table[name][i]}" for name in header))
+    for row in rows:
+        print("  " + ", ".join(f"{name}={v}" for name, v in zip(header, row)))
     return table
 
 

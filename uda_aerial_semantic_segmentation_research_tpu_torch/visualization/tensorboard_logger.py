@@ -15,10 +15,13 @@ files itself, so that the trainer runs where that package is not installed:
 Surface: ``log_scalar`` / ``log_scalars`` / ``log_image`` (with the JAX
 package's coercions: batch -> first element, CHW -> HWC, grayscale -> 3
 channels, integer label maps scaled) / ``log_figure`` / ``log_histogram`` /
-``log_text`` / ``flush`` / ``close``, one timestamped run directory per
-logger.  ``log_figure`` takes the figure as an RGB uint8 array (the port
-draws its figures in numpy: ``visualization.figures``), where the JAX
-package takes a matplotlib figure.
+``log_text`` / ``log_model_graph`` / ``flush`` / ``close``, one timestamped
+run directory per logger.  ``log_model_graph`` writes the module tree and
+the forward's graph as ``torch.jit.trace`` records it, as text (the JAX
+package writes its module table and lowered StableHLO).  ``log_figure``
+takes the figure as an RGB uint8 array (the port draws its figures in
+numpy: ``visualization.figures``), where the JAX package takes a matplotlib
+figure.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import os
 import socket
 import struct
 import time
+import warnings
 import zlib
 from pathlib import Path
 
@@ -387,6 +391,34 @@ class TensorboardLogger:
                   + _bytes(8, text.encode("utf-8")))
         self._emit(_summary_value(f"{tag}/text_summary",
                                   _bytes(9, metadata) + _bytes(8, tensor)), step)
+
+    def log_model_graph(self, model: torch.nn.Module, input_shape=(1, 256, 256, 3)):
+        """Text summaries of ``model``: ``model/structure`` (the module tree
+        and the parameter count) and ``model/graph`` (the forward's graph as
+        ``torch.jit.trace`` records it on a zero input of ``input_shape`` on
+        the model's device, in eval mode; cut at 100,000 characters).  Any
+        failure is logged as ``model/graph_error`` and never raised: graph
+        logging must not break training."""
+        try:
+            n_params = sum(p.numel() for p in model.parameters())
+            self.log_text("model/structure", f"```\n{model}\n\n{n_params:,} parameters\n```")
+            param = next(model.parameters(), None)
+            device = param.device if param is not None else torch.device("cpu")
+            was_training = model.training
+            model.eval()
+            try:
+                with warnings.catch_warnings(), torch.no_grad():
+                    warnings.simplefilter("ignore")
+                    traced = torch.jit.trace(model, torch.zeros(input_shape, device=device),
+                                             check_trace=False)
+            finally:
+                model.train(was_training)
+            graph = str(traced.inlined_graph)
+            if len(graph) > 100_000:
+                graph = graph[:100_000] + "\n... (truncated)"
+            self.log_text("model/graph", f"```\n{graph}\n```")
+        except Exception as e:
+            self.log_text("model/graph_error", f"{type(e).__name__}: {e}")
 
     def flush(self):
         if not self._closed:
