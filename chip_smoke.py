@@ -81,7 +81,7 @@
    model (plain versions), WEAK in float32 with the same seeded draws
    (made once on the host);
 8. prints one JSON line of kernel results (launches summed over the main
-   paths of 4, 5, 6, 9, 10, 11 and 12), the card line again, and last
+   paths of 4, 5, 6, 9, 10, 11, 12 and 13), the card line again, and last
    ``{"ok": true, "device": {...}}``.
 9. (after 7, before 8 prints; in a spawned process of its own, whose
    launch counts 8 adds in) drives the phase-1 trainer,
@@ -109,13 +109,17 @@
    phase3_epochs=1, batch_size=32, force_transitions=True)``, on the same
    model width with the JAX defaults (phase 2: ``WEAK``, ``lambda_adv``
    0.001, per-domain discriminator forwards; phase 3: ``STRONG`` views,
-   ``adam(lr * 0.1, clip_norm=1.0)`` over both models, no remat), its
+   ``adam(lr * 0.1, clip_norm=1.0)`` over both models, and what
+   ``UnsupervisedTrainer`` resolves to on the card: the sequential step over
+   an encoder-remat, bf16-logits clone of the U-Net with a bf16 carry), its
    ``_build_loaders`` replaced in that process by in-memory loaders (the
    80 source tiles split 64 / 16, 64 seeded target tiles with another
    photometric offset, shuffled, ``drop_last``): 2 steps a phase.  Checks
    the launches of every step (phase 1: 46 / 46 / 1 / 0; phase 2: 52 / 52
-   / 2 / 0, the U-Net and the discriminator on both domains; phase 3: 95 /
-   95 / 2 / 0, the U-Net on two views and the discriminator once) and none
+   / 2 / 0, the U-Net and the discriminator on both domains; phase 3: 211 /
+   95 / 2 / 0, the discriminator once, the U-Net on view 1 without
+   gradients and on views 2 and 1 with them, the 35 BatchNorms of the
+   encoder's blocks recomputed in both backward passes) and none
    outside the steps; the summary's three phases and
    ``training_metadata.json``; every phase's best checkpoint reloaded
    through ``from_jax_state_dict`` (U-Net, and the discriminator of phases
@@ -156,7 +160,7 @@
    the port's ``setup_test_data`` writes there with cv2.  Requires ``True``
    and 14 ✓.  Counts the five kernels' launches per suite and per train step:
    every step of the three trainers exactly as in phase 10 (46 / 46 / 1 / 0,
-   52 / 52 / 2 / 0, 95 / 95 / 2 / 0; phase 3 at B=1), and outside the steps
+   52 / 52 / 2 / 0, 211 / 95 / 2 / 0; phase 3 at B=1), and outside the steps
    only one ``dihedral_normalize`` per item augmentation (a dataset's
    transform), no ``conv_bn_relu`` and no ``fused_cross_entropy``.  Then:
    the ``model_io`` file (JAX layout) reloaded through
@@ -169,8 +173,39 @@
    at (8 / 2 / 1, 256, 256, 3) with no, uint8 and int32 masks.  Prints a
    ``system`` line: per suite ✓, wall s, launches, steps and item
    augmentations; the run's launches, peak memory, ``test_system``'s wall
-   time and phase 12's with its process.  The script's own wall time is
-   printed before the ``kernels`` line.
+   time and phase 12's with its process.
+13. (after 12, in a spawned process of its own) the memory-decomposed
+   phases 2 and 3 and the phase-3 production point of ``bench.py --mode
+   unsup``: the resnet34 U-Net (23 classes, 512 px, bf16, seeded weights)
+   with ``remat="encoder"``, ``logits_dtype=torch.bfloat16`` under
+   ``make_unsupervised_sequential_step(carry_dtype=torch.bfloat16)`` and
+   ``FineTuningLoss()``.  At B=32, on the same draws from the same state,
+   one update of each: the joint phase-3 step twice (the card's own
+   reproducibility), the sequential phase-3 step (no remat, no carry cast)
+   against the joint one, the sequential step with encoder remat against
+   it without; each held to its reference by the loss scalars (1e-6
+   relative), every BatchNorm buffer bit-identical, the clipped gradients
+   (1e-6 of each tensor's largest for the repeat and for remat, 1e-5 for
+   sequential against joint) and the parameters by the Adam-sign rule
+   (``hold_update``), with the exact launches of each step (95 / 95 / 2 /
+   0 joint, 141 / 95 / 2 / 0 sequential, 211 / 95 / 2 / 0 under encoder
+   remat, 52 / 52 / 2 / 0 for the phase-2 step, which the port runs under
+   both JAX names).  Then for the two phase-3 steps, the production point
+   and the phase-2 step: the bare step (p50 of 5 after a
+   warm-up, CUDA events, batches on the card), tiles/s, the peak memory
+   from a reset, launches per step and one step under
+   ``set_sync_debug_mode("error")``; both sequential phase-3 steps must peak
+   below the joint one.  The batch ladder 128, 64, 32 of the production
+   point (an out-of-memory is a row, not an error): the largest batch that
+   fits, its bare step, tiles/s and peak.  ``UnsupervisedTrainer`` with its
+   defaults resolves to encoder remat, the sequential step and a bf16 carry
+   and trains one epoch of 2 steps over 64 in-memory target tiles (211 / 95
+   / 2 / 0 a step, none outside); the model keeps its own remat and float32
+   logits.  Last, the sums kernels against their plain versions at every
+   BatchNorm input whose statistics were frozen (the recompute and
+   ``grad_view1``), untimed, at phase 3's tolerance.  Prints a
+   ``production`` line.  The script's own wall time is printed before the
+   ``kernels`` line.
 
 Any failed check raises and the script exits non-zero; without a CUDA
 device it exits non-zero before printing any result.  It imports
@@ -585,7 +620,11 @@ def kernel_ms(fn, calls: int = 20) -> float:
     for name, us in device_events(fn, calls):
         by_name[name].append(us)
     if not by_name:
-        raise AssertionError("the profiler saw no device event in any window")
+        # the profiler can lose every window (CUPTI); CUDA events over calls
+        # back to back stand in, the gaps between launches included
+        print("kernel_ms: the profiler saw no device event in any window; timed with "
+              "CUDA events", flush=True)
+        return device_ms(fn, inner=calls)
     return sum(statistics.fmean(v) for v in by_name.values()) / 1e3
 
 
@@ -1573,8 +1612,10 @@ def trainer_phase(card) -> dict:
 PIPE_TARGETS, PIPE_DEVICE, PIPE_ENCODER = 64, "cuda", "resnet34"
 # the discriminator's BatchNorm inputs at 512 px, B=32 (NHWC)
 DISC_BN_SHAPES = [(32, 128, 128, 128), (32, 64, 64, 256), (32, 32, 32, 512)]
+# the train step each phase of the pipeline builds on the card: phase 3 is the
+# trainer's production path, the sequential step
 STEP_FACTORIES = ("make_supervised_train_step", "make_adversarial_train_step",
-                  "make_unsupervised_train_step")
+                  "make_unsupervised_sequential_step")
 
 
 class InMemoryTargets:
@@ -1592,19 +1633,39 @@ class InMemoryTargets:
     __getitem__ = load_raw
 
 
-def pipeline_expected_launches(n_unet_bn: int, n_disc_bn: int) -> dict:
-    """Kernel launches per train step of each phase: one ``channel_sums``
-    and one ``channel_dual_sums`` per train-mode BatchNorm forward, one
+def encoder_block_bns(model) -> int:
+    """The BatchNorms inside the U-Net encoder's residual blocks: what
+    encoder remat recomputes in each grad-bearing pass."""
+    from uda_aerial_semantic_segmentation_research_tpu_torch.ops.batch_norm import BatchNorm
+
+    return sum(isinstance(m, BatchNorm) for name, block in model.encoder.named_children()
+               if name.startswith("stage") for m in block.modules())
+
+
+def pipeline_expected_launches(n_unet_bn: int, n_disc_bn: int, n_block_bn: int) -> dict:
+    """Kernel launches per train step of each step factory: one
+    ``channel_sums`` per train-mode BatchNorm forward (a recompute's
+    included) and one ``channel_dual_sums`` per BatchNorm backward, one
     ``dihedral_normalize`` per augmented batch (eval-mode BatchNorm and the
     discriminator's eval forward in phase 2's G-step launch nothing)."""
-    def counts(bn, dihedral):
-        return {"conv_bn_relu": 0, "channel_sums": bn, "channel_dual_sums": bn,
+    def counts(fwd, bwd, dihedral):
+        return {"conv_bn_relu": 0, "channel_sums": fwd, "channel_dual_sums": bwd,
                 "dihedral_normalize": dihedral, "fused_cross_entropy": 0}
-    return {"make_supervised_train_step": counts(n_unet_bn, 1),
+    return {"make_supervised_train_step": counts(n_unet_bn, n_unet_bn, 1),
             # U-Net on the source batch; D on the source and on the target batch
-            "make_adversarial_train_step": counts(n_unet_bn + 2 * n_disc_bn, 2),
+            "make_adversarial_train_step": counts(n_unet_bn + 2 * n_disc_bn,
+                                                  n_unet_bn + 2 * n_disc_bn, 2),
             # U-Net on two target views; D on the un-augmented target batch
-            "make_unsupervised_train_step": counts(2 * n_unet_bn + n_disc_bn, 2)}
+            "make_unsupervised_train_step": counts(2 * n_unet_bn + n_disc_bn,
+                                                   2 * n_unet_bn + n_disc_bn, 2),
+            # D; the U-Net on view 1 without gradients, then on view 2 and view 1
+            # with them
+            "sequential, no remat": counts(3 * n_unet_bn + n_disc_bn,
+                                           2 * n_unet_bn + n_disc_bn, 2),
+            # as the trainer runs it on the card: encoder remat recomputes the
+            # block BatchNorms of both grad-bearing passes
+            "make_unsupervised_sequential_step": counts(
+                3 * n_unet_bn + 2 * n_block_bn + n_disc_bn, 2 * n_unet_bn + n_disc_bn, 2)}
 
 
 def bits(t):
@@ -1752,7 +1813,7 @@ def drive_pipeline(counters, card, host_rng) -> dict:
     n_unet_bn = sum(isinstance(m, BatchNorm) for m in model.modules())
     n_disc_bn = sum(isinstance(m, BatchNorm) for m in
                     create_discriminator(device="cpu", dtype=torch.float32).modules())
-    expected = pipeline_expected_launches(n_unet_bn, n_disc_bn)
+    expected = pipeline_expected_launches(n_unet_bn, n_disc_bn, encoder_block_bns(model))
     probe = torch.from_numpy(images[-2:]).to(device)             # two validation tiles
 
     per_step = {name: [] for name in STEP_FACTORIES}
@@ -1878,11 +1939,14 @@ def drive_pipeline(counters, card, host_rng) -> dict:
                              skip_nonfinite=True)
     sup = step_lib.make_supervised_train_step(model, CLASSES)
     adv = step_lib.make_adversarial_train_step(model, disc, CLASSES)
-    unsup = step_lib.make_unsupervised_train_step(model, disc, CLASSES, FineTuningLoss())
+    # phase 3 as UnsupervisedTrainer runs it on the card
+    unsup = step_lib.make_unsupervised_sequential_step(
+        model.clone(remat="encoder", logits_dtype=torch.bfloat16), disc, CLASSES,
+        FineTuningLoss(), carry_dtype=torch.bfloat16)
     bare = {
         "make_supervised_train_step": lambda b: sup(sup_state, gen, b[0], b[1]),
         "make_adversarial_train_step": lambda b: adv(adv_state, gen, b[0], b[1], b[2]),
-        "make_unsupervised_train_step": lambda b: unsup(unsup_state, gen, b[2], 1.0)}
+        "make_unsupervised_sequential_step": lambda b: unsup(unsup_state, gen, b[2], 1.0)}
     phase_of = dict(zip(STEP_FACTORIES, ("phase1", "phase2", "phase3")))
     per_phase = {phase_of[name]: bare_step_report(fn, dev, turn)
                  | {"launches_per_step": per_step[name][0]} for name, fn in bare.items()}
@@ -1930,7 +1994,8 @@ def drive_pipeline(counters, card, host_rng) -> dict:
         "data": f"{TRAINER_TILES} source tiles (split {TRAINER_TRAIN} / "
                 f"{TRAINER_TILES - TRAINER_TRAIN}), {PIPE_TARGETS} target tiles, in memory",
         "epochs_per_phase": 1, "steps": steps_run,
-        "phase3_remat": False, "phase3_step": "joint (not sequential)",
+        "phase3_remat": "encoder",
+        "phase3_step": "sequential, bf16 logits and carry (the trainer's resolution)",
         "phases": per_phase, "consistency_kl": kl, "launches": run_counts,
         "checkpoints": [{k: s[k] for k in ("phase", "mb", "write_ms")} for s in saved],
         "pipeline_wall_s": wall_s,
@@ -2189,7 +2254,7 @@ def system_steps() -> dict:
                          2 * -(-int(0.8 * SYSTEM_SOURCE) // SYSTEM_BATCH)),
             "adversarial_training": ("make_adversarial_train_step",
                                      2 * -(-SYSTEM_SOURCE // SYSTEM_BATCH)),
-            "unsupervised_training": ("make_unsupervised_train_step", SYSTEM_TARGETS)}
+            "unsupervised_training": ("make_unsupervised_sequential_step", SYSTEM_TARGETS)}
 
 
 # the dihedral_normalize inputs of the CLI: the steps' batches (B=8, the
@@ -2261,10 +2326,11 @@ def drive_system(counters, card, host_rng) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     for key in [k for k in os.environ if k.startswith("UDA_TPU_")]:
         del os.environ[key]                        # the Config defaults, no converted weights
-    n_unet_bn = sum(isinstance(m, BatchNorm) for m in
-                    create_unet(SYSTEM_ENCODER, classes=CLASSES, device="cpu").modules())
+    unet = create_unet(SYSTEM_ENCODER, classes=CLASSES, device="cpu")
+    n_unet_bn = sum(isinstance(m, BatchNorm) for m in unet.modules())
     n_disc_bn = sum(isinstance(m, BatchNorm) for m in create_discriminator(device="cpu").modules())
-    expected = pipeline_expected_launches(n_unet_bn, n_disc_bn)
+    expected = pipeline_expected_launches(n_unet_bn, n_disc_bn, encoder_block_bns(unet))
+    del unet
     probe = torch.from_numpy(host_rng.integers(0, 256, (2, SYSTEM_TILE, SYSTEM_TILE, 3),
                                                dtype=np.uint8)).to(SYSTEM_DEVICE)
 
@@ -2470,6 +2536,383 @@ def system_phase(card) -> dict:
     torch.cuda.empty_cache()
     with multiprocessing.get_context("spawn").Pool(1) as pool:
         return pool.apply(_system_child, (card,))
+
+
+# the phase-3 production point (``bench.py --mode unsup``): the resnet34 U-Net
+# with encoder remat and bf16 logits under the sequential step with a bf16
+# carry, FineTuningLoss() defaults; the batch ladder of the JAX bench
+PROD_LADDER, PROD_EPOCH = (128, 64, 32), 20.0
+PROD_LR = {"phase2": 1e-4, "phase3": 1e-5}
+UNSUP_LOSSES = ("total", "consistency", "domain_confusion", "supervised", "rampup_weight",
+                "domain_prob")
+
+
+def update_snapshot(models) -> dict:
+    """Every parameter, gradient and buffer of ``models`` after an update (clones)."""
+    out = {}
+    for i, m in enumerate(models):
+        for k, p in m.named_parameters():
+            out[f"{i}/param/{k}"] = p.detach().clone()
+            out[f"{i}/grad/{k}"] = (torch.zeros_like(p) if p.grad is None
+                                    else p.grad.detach().clone())
+        out.update({f"{i}/buffer/{k}": b.clone() for k, b in m.named_buffers()})
+    return out
+
+
+def hold_update(label, ref, other, lr, grad_tol) -> dict:
+    """``other``, one update from the same state on the same draws as
+    ``ref``: every BatchNorm buffer bit-identical; every clipped gradient
+    within ``grad_tol`` of its tensor's largest entry (a tensor whose
+    largest is below 1e-6 of the network's, such as a conv bias in front
+    of a BatchNorm, against that 1e-6); the parameters by the
+    Adam-sign rule (tests/test_torch_adversarial.py): Adam's first update is
+    ``lr * g / (|g| + eps)``, +-lr whatever |g|, so a gradient entry whose
+    sign is float noise moves +lr in one run and -lr in the other.  Every
+    entry within ``2.5 * lr`` of ``ref``'s, plus one float32 ulp of the
+    parameter; entries whose gradient is at least 10% of their tensor's
+    largest (in a tensor whose largest is at least 1e-6 of the network's:
+    a conv bias in front of a BatchNorm has none) within ``0.02 * lr`` plus
+    one ulp: their sign is not noise."""
+    moved = [k for k in ref if "/buffer/" in k and not torch.equal(ref[k], other[k])]
+    if moved:
+        raise AssertionError(f"{label}: BatchNorm buffers differ: {moved[:5]}")
+    params = [k for k in ref if "/param/" in k]
+    grads = {k: ref[k.replace("/param/", "/grad/")] for k in params}
+    largest = max(g.abs().max().item() for g in grads.values())
+    grad_err, grad_worst = 0.0, None
+    for k, g in grads.items():
+        scale = max(g.abs().max().item(), 1e-6 * largest)
+        err = (other[k.replace("/param/", "/grad/")] - g).abs().max().item() / scale
+        if err > grad_err:
+            grad_err, grad_worst = err, k
+    if not grad_err <= grad_tol:
+        raise AssertionError(f"{label}: gradient {grad_worst} off by {grad_err} of its "
+                             f"tensor's largest (tolerance {grad_tol})")
+    worst = worst_significant = 0.0
+    significant = total = 0
+    for k in params:
+        excess = ((other[k] - ref[k]).abs()
+                  - torch.finfo(torch.float32).eps * ref[k].abs()) / lr
+        worst = max(worst, excess.max().item())
+        g, gmax = grads[k].abs(), grads[k].abs().max()
+        total += g.numel()
+        if gmax >= 1e-6 * largest:
+            mask = g >= 0.1 * gmax
+            significant += int(mask.sum())
+            worst_significant = max(worst_significant, excess[mask].max().item())
+    if worst > 2.5 or worst_significant > 0.02:
+        raise AssertionError(f"{label}: parameters off by {worst} lr (significant entries "
+                             f"{worst_significant} lr)")
+    return {"buffers_bit_identical": sum("/buffer/" in k for k in ref),
+            "grad_max_err_of_largest": grad_err, "grad_worst": grad_worst,
+            "param_max_excess_lr": worst, "significant_param_max_excess_lr": worst_significant,
+            "significant_share": significant / total,
+            "tolerance": f"gradients {grad_tol} of each tensor's largest; parameters: every "
+                         "entry 2.5 lr, entries with |g| >= 10% of their tensor's largest "
+                         "0.02 lr, each plus one float32 ulp; buffers bit-identical"}
+
+
+def hold_metrics(label, ref, other, keys, rtol=1e-6) -> dict:
+    """Loss scalars of two runs of one update within ``rtol``."""
+    errs = {}
+    for k in keys:
+        a, b = ref[k].float(), other[k].float()
+        errs[k] = ((a - b).abs() / a.abs().clamp_min(1e-30)).max().item()
+        if not errs[k] <= rtol:
+            raise AssertionError(f"{label}: {k} {b.tolist()} against {a.tolist()}")
+    return {"max_rel_err": max(errs.values()), "rtol": rtol}
+
+
+def measure_step(fn, batches, counters) -> dict:
+    """A bare step ``fn(batch)`` on batches already on the card: p50 of 5 after
+    one warm-up (CUDA events), the peak memory from a reset, the launches of
+    one step, and one step under ``set_sync_debug_mode("error")`` (a host
+    sync raises)."""
+    turn = itertools.count()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(lambda: fn(batches[next(turn) % len(batches)]), reps=5, warmup=1)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.synchronize()
+    before = read_counts(counters)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn(batches[next(turn) % len(batches)])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    after = read_counts(counters)
+    return {"bare_step_ms_p50": ms, "tiles_per_s": batches[0][0].shape[0] / ms * 1e3,
+            "peak_mem_gib": peak_gib, "host_syncs_per_step": 0,
+            "launches_per_step": {k: after[k] - before[k] for k in after}}
+
+
+def drive_production(counters, card, host_rng) -> dict:
+    """Phase 13: the memory-decomposed phases 2 and 3 and the phase-3
+    production point on the card (see main)."""
+    import gc
+
+    from uda_aerial_semantic_segmentation_research_tpu_torch.config import Config
+    from uda_aerial_semantic_segmentation_research_tpu_torch.data.loader import DataLoader
+    from uda_aerial_semantic_segmentation_research_tpu_torch.models import (
+        DomainAdaptationModel,
+        create_discriminator,
+        create_unet,
+    )
+    from uda_aerial_semantic_segmentation_research_tpu_torch.ops import (
+        batch_norm as bn_mod,
+        channel_sums as sums_ops,
+    )
+    from uda_aerial_semantic_segmentation_research_tpu_torch.ops.batch_norm import BatchNorm
+    from uda_aerial_semantic_segmentation_research_tpu_torch.ops.losses import FineTuningLoss
+    from uda_aerial_semantic_segmentation_research_tpu_torch.training import (
+        steps as step_lib,
+        unsupervised_trainer,
+    )
+    from uda_aerial_semantic_segmentation_research_tpu_torch.training.state import (
+        AdversarialState,
+        TrainState,
+        adam,
+    )
+
+    device = torch.device(PIPE_DEVICE)
+    seg0 = create_unet(PIPE_ENCODER, classes=CLASSES, seed=SEED, dtype=torch.bfloat16,
+                       device=device)
+    disc0 = create_discriminator(seed=SEED + 1, dtype=torch.bfloat16, device=device)
+    n_unet_bn = sum(isinstance(m, BatchNorm) for m in seg0.modules())
+    n_disc_bn = sum(isinstance(m, BatchNorm) for m in disc0.modules())
+    expected = pipeline_expected_launches(n_unet_bn, n_disc_bn, encoder_block_bns(seg0))
+
+    def batch(b):
+        return tuple(torch.from_numpy(a).to(device) for a in (
+            host_rng.integers(0, 256, (b, TILE, TILE, 3), dtype=np.uint8),
+            host_rng.integers(0, CLASSES, (b, TILE, TILE), dtype=np.uint8),
+            host_rng.integers(0, 256, (b, TILE, TILE, 3), dtype=np.uint8)))
+
+    dev = [batch(TRAIN_BATCH) for _ in range(2)]      # (source, masks, target) x 2
+
+    # the step variants: (name, factory over fresh models, phase, step(state, gen, b))
+    def unsup(make, remat=False, logits=torch.float32, **kw):
+        def build(seg, disc):
+            if remat or logits != torch.float32:
+                seg = seg.clone(remat=remat, logits_dtype=logits)
+            return make(seg, disc, CLASSES, FineTuningLoss(), **kw)
+        return build
+
+    variants = {
+        "phase3_joint": ("make_unsupervised_train_step",
+                         unsup(step_lib.make_unsupervised_train_step)),
+        "phase3_sequential": ("sequential, no remat",
+                              unsup(step_lib.make_unsupervised_sequential_step)),
+        "phase3_sequential_remat": ("make_unsupervised_sequential_step",
+                                    unsup(step_lib.make_unsupervised_sequential_step,
+                                          remat="encoder")),
+        "phase3_production": ("make_unsupervised_sequential_step",
+                              unsup(step_lib.make_unsupervised_sequential_step,
+                                    remat="encoder", logits=torch.bfloat16,
+                                    carry_dtype=torch.bfloat16)),
+        "phase2": ("make_adversarial_train_step",
+                   lambda seg, disc: step_lib.make_adversarial_train_step(seg, disc, CLASSES)),
+    }
+
+    def instantiate(name):
+        """Fresh copies of the seeded models, their state and the step."""
+        seg, disc = copy.deepcopy(seg0), copy.deepcopy(disc0)
+        name = name.removesuffix(" again")
+        if name.startswith("phase3"):
+            state = TrainState(DomainAdaptationModel(seg, disc),
+                               adam(PROD_LR["phase3"], clip_norm=1.0), skip_nonfinite=True)
+        else:
+            state = AdversarialState(TrainState(seg, adam(PROD_LR["phase2"])),
+                                     TrainState(disc, adam(PROD_LR["phase2"])))
+        step = variants[name][1](seg, disc)
+        if name.startswith("phase3"):
+            return seg, disc, state, lambda gen, b: step(state, gen, b[2], PROD_EPOCH)[1]
+        return seg, disc, state, lambda gen, b: step(state, gen, b[0], b[1], b[2])[1]
+
+    # BatchNorm inputs whose statistics are frozen: the recompute (and
+    # grad_view1's forward), for the sums checks below
+    frozen_inputs = collections.Counter()
+
+    def frozen_hook(module, inputs):
+        if isinstance(module, BatchNorm) and module.training and bn_mod.statistics_frozen():
+            x = inputs[0]
+            frozen_inputs[(tuple(x.permute(0, 2, 3, 1).shape), x.dtype)] += 1
+
+    # 1. one update of each variant on the same draws, held against its reference
+    runs = {}
+    hook = torch.nn.modules.module.register_module_forward_pre_hook(frozen_hook)
+    try:
+        for name in ("phase3_joint", "phase3_joint again", "phase3_sequential",
+                     "phase3_sequential_remat"):
+            seg, disc, state, run = instantiate(name)
+            before = read_counts(counters)
+            metrics = run(torch.Generator(device=device).manual_seed(SEED + 13), dev[0])
+            torch.cuda.synchronize()
+            after = read_counts(counters)
+            launches = {k: after[k] - before[k] for k in after}
+            factory = variants[name.removesuffix(" again")][0]
+            if launches != expected[factory]:
+                raise AssertionError(f"{name}: launches {launches}, expected {expected[factory]}")
+            if not bool(metrics["finite"]):
+                raise AssertionError(f"{name}: the update was not finite")
+            runs[name] = (metrics, update_snapshot((seg, disc)), launches)
+            del seg, disc, state, run
+            torch.cuda.empty_cache()
+    finally:
+        hook.remove()
+    # gradient tolerances: a step repeated, or its forward recomputed, runs
+    # the same kernels on the same values (1e-6 leaves room for a kernel
+    # that adds in a varying order); the sequential step adds the same
+    # terms as the joint backward in another order, in float32 (1e-5, as
+    # tests/test_torch_sequential_steps.py on the CPU)
+    held = {}
+    for label, ref, other, grad_tol in (
+            ("joint vs joint (phase 3, reproducibility)", "phase3_joint",
+             "phase3_joint again", 1e-6),
+            ("sequential vs joint (phase 3)", "phase3_joint", "phase3_sequential", 1e-5),
+            ("encoder remat vs none (sequential phase 3)", "phase3_sequential",
+             "phase3_sequential_remat", 1e-6)):
+        held[label] = {"metrics": hold_metrics(label, runs[ref][0], runs[other][0],
+                                               UNSUP_LOSSES),
+                       "update": hold_update(label, runs[ref][1], runs[other][1],
+                                             PROD_LR["phase3"], grad_tol)}
+        print(f"phase 13 held: {label} {json.dumps(held[label])}", flush=True)
+    del runs
+    torch.cuda.empty_cache()
+
+    # 2. bare steps at B=32: time, tiles/s, peak memory, launches, host syncs
+    timed = {}
+    for name in variants:
+        seg, disc, state, run = instantiate(name)
+        gen = torch.Generator(device=device).manual_seed(SEED + 14)
+        rec = measure_step(lambda b: run(gen, b), dev, counters)
+        if rec["launches_per_step"] != expected[variants[name][0]]:
+            raise AssertionError(f"{name}: launches {rec['launches_per_step']}")
+        if name == "phase3_production":
+            prof = profile_forward(lambda: run(gen, dev[0]), reps=2)
+            rec.update({"device_ms": prof.get("device_ms_per_call"),
+                        "busy_share": prof.get("busy_share"),
+                        "by_category_ms": prof.get("by_category_ms")})
+        timed[name] = rec
+        print(f"phase 13 step {name}: {json.dumps(rec)}", flush=True)
+        del seg, disc, state, run
+        gc.collect()
+        torch.cuda.empty_cache()
+    for name in ("phase3_sequential", "phase3_production"):
+        if not timed[name]["peak_mem_gib"] < timed["phase3_joint"]["peak_mem_gib"]:
+            raise AssertionError(f"{name} peaks at {timed[name]['peak_mem_gib']} GiB, the "
+                                 f"joint step at {timed['phase3_joint']['peak_mem_gib']}")
+    del dev
+
+    # 3. the batch ladder of the production point; an out-of-memory is a row
+    ladder, largest = [], None
+    for b in PROD_LADDER:
+        seg = disc = state = run = batches = None
+        try:
+            batches = [batch(b) for _ in range(2)]
+            seg, disc, state, run = instantiate("phase3_production")
+            gen = torch.Generator(device=device).manual_seed(SEED + 15)
+            rec = measure_step(lambda x: run(gen, x), batches, counters)
+            hook = torch.nn.modules.module.register_module_forward_pre_hook(frozen_hook)
+            try:
+                run(gen, batches[0])
+            finally:
+                hook.remove()
+            largest = {"batch": b, **rec}
+            ladder.append({"batch": b, "fits": True})
+        except torch.cuda.OutOfMemoryError as e:
+            ladder.append({"batch": b, "fits": False, "error": str(e).splitlines()[0][:160]})
+        finally:
+            del seg, disc, state, run, batches
+            gc.collect()
+            torch.cuda.empty_cache()
+        print(f"phase 13 ladder: {json.dumps(ladder[-1])}", flush=True)
+        if largest is not None:
+            break
+    if largest is None:
+        raise AssertionError(f"the production point fits no batch of {PROD_LADDER}")
+
+    # 4. UnsupervisedTrainer with its defaults on the card: one epoch of 2 steps
+    targets = host_rng.integers(0, 256, (2 * TRAIN_BATCH, TILE, TILE, 3), dtype=np.uint8)
+    val = InMemoryTiles(host_rng.integers(0, 256, (16, TILE, TILE, 3), dtype=np.uint8),
+                        host_rng.integers(0, CLASSES, (16, TILE, TILE)).astype(np.int32))
+    name = "make_unsupervised_sequential_step"
+    per_step, real = {name: []}, step_lib.make_unsupervised_sequential_step
+    with tempfile.TemporaryDirectory() as tmp:
+        old_logs = Config.LOGS_DIR
+        Config.LOGS_DIR = tmp
+        step_lib.make_unsupervised_sequential_step = (
+            lambda *a, **k: counted(real(*a, **k), counters, per_step[name]))
+        hook = torch.nn.modules.module.register_module_forward_pre_hook(frozen_hook)
+        try:
+            seg, disc = copy.deepcopy(seg0), copy.deepcopy(disc0)
+            trainer = unsupervised_trainer.UnsupervisedTrainer(DomainAdaptationModel(seg, disc),
+                                                               device=device)
+            resolved = (trainer.remat, trainer.sequential, trainer.carry_dtype)
+            if resolved != ("encoder", True, torch.bfloat16):
+                raise AssertionError(f"the trainer resolved to {resolved}")
+            torch.cuda.synchronize()
+            reset_counts(counters)
+            t0 = time.perf_counter()
+            trainer.train(DataLoader(InMemoryTargets(targets), batch_size=TRAIN_BATCH,
+                                     shuffle=True, drop_last=True),
+                          DataLoader(val, batch_size=TRAIN_BATCH), epochs=1,
+                          learning_rate=PROD_LR["phase3"])
+            torch.cuda.synchronize()
+            trainer_wall_s = time.perf_counter() - t0
+            run_counts = read_counts(counters)
+        finally:
+            hook.remove()
+            step_lib.make_unsupervised_sequential_step = real
+            Config.LOGS_DIR = old_logs
+        if seg.remat is not False or seg.logits_dtype != torch.float32:
+            raise AssertionError("the trainer changed the model's own remat or logits dtype")
+        trainer_steps = check_step_launches("production trainer", per_step, expected,
+                                            {name: 2}, run_counts)
+        del trainer, seg, disc
+    torch.cuda.empty_cache()
+
+    # 5. the sums kernels at every BatchNorm input with frozen statistics
+    gen = torch.Generator(device=device).manual_seed(SEED + 16)
+    sums = [check_sums_quietly(sums_ops, gen, shape, dtype) for shape, dtype in sorted(
+        frozen_inputs, key=lambda k: (k[0], str(k[1])))]
+    result = {
+        "model": f"{PIPE_ENCODER} U-Net, {CLASSES} classes, + DomainDiscriminator",
+        "dtype": "bfloat16", "tile": TILE, "batch": TRAIN_BATCH,
+        "production_point": "remat='encoder', logits_dtype=bfloat16, "
+                            "make_unsupervised_sequential_step(carry_dtype=bfloat16), "
+                            "FineTuningLoss() defaults, epoch 20",
+        "expected_launches_per_step": {variants[n][0]: expected[variants[n][0]]
+                                       for n in variants},
+        "held_at_b32": held, "steps_b32": timed,
+        "ladder": ladder, "largest_batch": largest,
+        "trainer": {"resolved": {"remat": "encoder", "sequential": True,
+                                 "carry_dtype": "bfloat16"},
+                    "steps": trainer_steps, "wall_s": trainer_wall_s},
+        "launches": run_counts,
+        "frozen_statistics_sums_checked": [
+            {"shape": r["shape"], "dtype": r["dtype"], "max_rel_err": r["max_rel_err"],
+             "max_abs_err": r["max_abs_err"],
+             "forwards": frozen_inputs[(tuple(r["shape"]), getattr(torch, r["dtype"]))]}
+            for r in sums],
+        "sums_tolerance": "1e-5 * sum|terms|; two launches bit-identical",
+        "card": card}
+    return result
+
+
+def _production_child(card) -> dict:
+    return drive_production(kernel_counters(), card, np.random.default_rng(SEED + 13))
+
+
+def production_phase(card) -> dict:
+    """Phase 13 in a fresh process of its own (spawned, as phases 9-12)."""
+    import multiprocessing
+
+    torch.cuda.empty_cache()
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        return pool.apply(_production_child, (card,))
 
 
 def main(argv=None) -> int:
@@ -2872,9 +3315,18 @@ def main(argv=None) -> int:
     system_counts = system_result["launches"]
     print(json.dumps({"system": system_result}), flush=True)
 
+    # 13. the memory-decomposed phases 2 and 3 and the phase-3 production
+    #     point, in a process of its own
+    t0 = time.perf_counter()
+    production_result = production_phase(card)
+    production_result["process_wall_s"] = time.perf_counter() - t0      # spawn to result
+    production_counts = production_result["launches"]
+    print(json.dumps({"production": production_result}), flush=True)
+
     # 8. results
     total = {k: serving_counts[k] + train_counts[k] + eval_counts[k] + trainer_counts[k]
-             + pipeline_counts[k] + multiphase_counts[k] + system_counts[k] for k in counters}
+             + pipeline_counts[k] + multiphase_counts[k] + system_counts[k]
+             + production_counts[k] for k in counters}
     if min(total.values()) == 0:
         raise AssertionError(f"a kernel never launched on the main paths: {total}")
     src = f"{PORT}/csrc"
@@ -2977,7 +3429,8 @@ def main(argv=None) -> int:
     }]
     print(f"chip_smoke wall time: {time.perf_counter() - t_script:.1f} s (phase 11 with "
           f"its process: {multiphase_result['process_wall_s']:.1f} s, phase 12: "
-          f"{system_result['process_wall_s']:.1f} s)", flush=True)
+          f"{system_result['process_wall_s']:.1f} s, phase 13: "
+          f"{production_result['process_wall_s']:.1f} s)", flush=True)
     print(json.dumps({"kernels": entries}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -162,7 +162,7 @@ def test_no_domain_logit_sits_at_the_threshold():
     from 0."""
     model = _port_uda("resnet18", _uda_weights("resnet18", SIZE)[1]).train()
     batch = _batch(5)
-    xs, _, xt = steps._grl_inputs(
+    xs, _, xt = steps._source_target_inputs(
         model, None, *batch, PCFG,
         _draws(jax.random.fold_in(jax.random.key(KEY), 0), batch[0].shape, batch[2].shape))
     inputs = [augment.normalize_images(torch.from_numpy(b[i]))

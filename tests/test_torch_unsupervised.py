@@ -353,15 +353,39 @@ def test_unsupervised_step_draws_v1_v2_then_the_supervised_view():
 # the trainer
 # ---------------------------------------------------------------------------
 def test_unsupervised_trainer_options():
+    """The JAX trainer's resolution with the card in the TPU's place: on the
+    CPU ``"auto"`` is encoder remat and the joint step; ``remat`` /
+    ``sequential`` / ``carry_dtype`` build the matching step, over a clone of
+    the U-Net that shares its parameters."""
     seg, disc = _port_models()
     trainer = unsupervised_trainer.UnsupervisedTrainer(DomainAdaptationModel(seg, disc),
                                                        device="cpu")
     assert trainer.discriminator is disc and trainer.domain_model.segmentation_model is seg
-    assert trainer.remat is False and trainer.sequential is False
-    for kw in ({"remat": "encoder"}, {"remat": True}, {"sequential": True},
-               {"carry_dtype": torch.bfloat16}):
-        with pytest.raises(NotImplementedError, match="A.9"):
-            unsupervised_trainer.UnsupervisedTrainer(seg, device="cpu", **kw)
+    assert trainer.remat == "encoder" and trainer.sequential is False
+    assert trainer.carry_dtype is None
+    built = []
+    with pytest.MonkeyPatch.context() as mp:
+        for name in ("make_unsupervised_train_step", "make_unsupervised_sequential_step"):
+            mp.setattr(steps, name, lambda model, *a, _n=name, **kw: built.append(
+                (_n, model, kw)))
+        trainer._get_unsup_step(False)
+        for kw, factory, remat, carry in (
+                ({"remat": "encoder"}, "make_unsupervised_train_step", "encoder", None),
+                ({"remat": True}, "make_unsupervised_train_step", True, None),
+                ({"sequential": True}, "make_unsupervised_sequential_step", "encoder", None),
+                ({"carry_dtype": torch.bfloat16}, "make_unsupervised_train_step", "encoder",
+                 torch.bfloat16)):
+            other = unsupervised_trainer.UnsupervisedTrainer(seg, device="cpu", **kw)
+            assert (other.remat, other.carry_dtype) == (remat, carry), kw
+            other._get_unsup_step(True)
+            name, model, step_kw = built[-1]
+            assert name == factory and step_kw["with_supervised"], kw
+            assert step_kw.get("carry_dtype") == (carry if other.sequential else None), kw
+            assert model.remat == remat and model is not seg, kw
+    name, model, _ = built[0]
+    assert name == "make_unsupervised_train_step" and model.remat == "encoder"
+    assert all(a is b for a, b in zip(model.parameters(), seg.parameters()))
+    assert seg.remat is False and seg.encoder.remat is False
     fresh = unsupervised_trainer.UnsupervisedTrainer(seg, device="cpu")
     assert fresh.discriminator is not disc
     state = fresh._make_state(1e-4)

@@ -14,5 +14,12 @@ adversarial and unsupervised steps and trainers, ``PhaseManager``, the
 target-domain data); the JAX package's four Pallas
 kernels are hand-written CUDA under ``csrc/``.  Public functions keep the
 JAX package's NHWC layout; entry points run on ``cuda`` unless the caller
-passes ``device="cpu"``.
+passes ``device="cpu"``.  Each package ``__init__`` exports the public names
+of its JAX counterpart's ``__all__``.
 """
+
+__version__ = "0.1.0"
+
+from uda_aerial_semantic_segmentation_research_tpu_torch.config import Config
+
+__all__ = ["Config", "__version__"]

@@ -57,6 +57,9 @@ class DataLoader:
         drop_last: drop the trailing partial batch (keeps shapes static).
         num_workers: >0 enables background prefetching of ``num_workers + 1``
             batches (thread-based; decode releases the GIL).
+        pin_memory: accepted for the JAX signature and ignored: the host
+            batches are numpy arrays, and ``prefetch_to_device`` pins its
+            own staging copies before the H2D copy.
         seed: shuffle seed.
     """
 
@@ -68,6 +71,7 @@ class DataLoader:
         sampler=None,
         drop_last: bool = False,
         num_workers: int = 0,
+        pin_memory: bool = False,
         seed: Optional[int] = None,
     ):
         self.dataset = dataset

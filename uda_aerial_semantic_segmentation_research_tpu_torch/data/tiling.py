@@ -32,11 +32,12 @@ def tile_grid(h: int, w: int, tile: int, overlap: int = 0) -> List[Tuple[int, in
     return [(y, x) for y in sorted(set(ys)) for x in sorted(set(xs))]
 
 
-def tile_image(image: np.ndarray, tile: int, overlap: int = 0):
+def tile_image(image: np.ndarray, tile: int, overlap: int = 0, pad_value: int = 0):
     """Cut a raster into fixed-size tiles.
 
     Images smaller than ``tile`` are edge-padded so every output has the
-    shape (tile, tile, C).
+    shape (tile, tile, C).  ``pad_value`` is accepted for the JAX signature
+    and unused there too: the padding repeats the edge.
 
     Returns (tiles (N, tile, tile, C), origins [(y, x)], padded_hw).
     """

@@ -72,7 +72,8 @@ def create_unet(encoder_name: Optional[str] = None, encoder_weights: Optional[st
                 in_channels: Optional[int] = None, classes: Optional[int] = None,
                 activation: Optional[str] = None, image_size: Optional[int] = None,
                 seed: int = 0, dtype: Optional[torch.dtype] = None, device=None,
-                fused_eval: bool = False) -> Unet:
+                fused_eval: bool = False, remat=False,
+                logits_dtype: torch.dtype = torch.float32) -> Unet:
     """Build a seeded U-Net in eval mode on ``device`` (default ``cuda``).
 
     The arguments up to ``dtype`` sit where the JAX ``create_unet`` has
@@ -82,7 +83,9 @@ def create_unet(encoder_name: Optional[str] = None, encoder_weights: Optional[st
     accepted for the JAX signature; the port's initialization does not need
     a sample input.  ``dtype`` is the compute dtype (parameters stay
     float32); ``fused_eval`` routes the low-channel decoder blocks through
-    the ``conv_bn_relu`` kernel in eval mode.
+    the ``conv_bn_relu`` kernel in eval mode; ``remat`` and ``logits_dtype``
+    are the ``Unet``'s (the JAX ``create_unet`` passes them through its
+    ``**unet_kwargs``).
     """
     del image_size
     dev = resolve_device(device)
@@ -91,7 +94,7 @@ def create_unet(encoder_name: Optional[str] = None, encoder_weights: Optional[st
                  classes=classes or Config.NUM_CLASSES,
                  in_channels=in_channels or Config.IN_CHANNELS,
                  activation=activation, dtype=dtype or Config.compute_dtype(),
-                 fused_eval=fused_eval)
+                 fused_eval=fused_eval, remat=remat, logits_dtype=logits_dtype)
     init_weights_(model, torch.Generator().manual_seed(seed))
     model = model.to(dev, memory_format=torch.channels_last).eval()
     if encoder_weights == "imagenet":
@@ -134,11 +137,16 @@ _NOT_PORTED = ("UnetPlusPlus", "FPN", "PSPNet", "Linknet", "DeepLabV3Plus", "PAN
 
 def create_model(model_name: Optional[str] = None, encoder_name: Optional[str] = None,
                  encoder_weights: Optional[str] = None, in_channels: Optional[int] = None,
-                 classes: Optional[int] = None, seed: int = 0,
-                 dtype: Optional[torch.dtype] = None, device=None, **arch_kwargs) -> Unet:
-    """By-name architecture factory (defaults from ``Config``).  ``"Unet"``
-    builds on ``create_unet``, which loads the local converted encoder
-    checkpoint for ``encoder_weights="imagenet"`` (``models.pretrained``)."""
+                 classes: Optional[int] = None, image_size: Optional[int] = None,
+                 seed: int = 0, dtype: Optional[torch.dtype] = None, device=None,
+                 **arch_kwargs) -> Unet:
+    """By-name architecture factory (defaults from ``Config``), with the JAX
+    ``create_model``'s arguments in their positions.  ``"Unet"`` builds on
+    ``create_unet``, which loads the local converted encoder checkpoint for
+    ``encoder_weights="imagenet"`` (``models.pretrained``); ``image_size`` is
+    accepted for the JAX signature (the port's initialization needs no sample
+    input); ``arch_kwargs`` (``remat``,
+    ``logits_dtype``, ``fused_eval``) pass through to the ``Unet``."""
     model_name = model_name or Config.MODEL_NAME
     encoder_name = encoder_name or Config.ENCODER_NAME
     if model_name in _NOT_PORTED:
@@ -149,7 +157,8 @@ def create_model(model_name: Optional[str] = None, encoder_name: Optional[str] =
         raise ValueError(f"Unknown model '{model_name}'; "
                          f"available: {sorted(_NOT_PORTED + ('Unet',))}")
     return create_unet(encoder_name, encoder_weights, in_channels=in_channels,
-                       classes=classes, seed=seed, dtype=dtype, device=device, **arch_kwargs)
+                       classes=classes, image_size=image_size, seed=seed, dtype=dtype,
+                       device=device, **arch_kwargs)
 
 
 __all__ = ["ENCODERS", "DomainAdaptationModel", "DomainDiscriminator",

@@ -10,6 +10,14 @@ returns the same 6-level pyramid
 Padding follows the JAX encoder exactly: torch-style symmetric ``k//2``
 for every conv (equal to SAME at stride 1), max-pool 3/2 with -inf
 padding 1.  Parameters are float32; activations run in ``dtype``.
+
+``remat`` (the JAX encoder's option, numerically the same network and the
+same parameters in every mode) recomputes activations in the backward
+instead of saving them: ``True`` checkpoints each residual block (the stem
+is never recomputed), ``"stageN..."`` only the blocks of those stages, and
+``"convs"`` each normalize(+ReLU) between the convs, so that the conv
+outputs stay saved and only the elementwise chain runs again.  The
+recompute moves no BatchNorm buffer (``ops.batch_norm.checkpoint``).
 """
 
 from __future__ import annotations
@@ -22,7 +30,28 @@ from torch import nn
 
 from uda_aerial_semantic_segmentation_research_tpu_torch.ops.batch_norm import (
     BatchNorm,
+    checkpoint,
 )
+
+
+def _remat_stage_set(remat):
+    """Parse stage-granular remat specs: ``"stage1"`` remats only stage 1's
+    blocks, ``"stage12"`` stages 1 and 2, etc. (1-based, matching the
+    ``stageN_blockM`` names).  Returns None for every other remat mode."""
+    if isinstance(remat, str) and remat.startswith("stage"):
+        stages = {int(c) for c in remat[len("stage"):]}
+        if not stages or not stages <= {1, 2, 3, 4}:
+            raise ValueError(f"Bad stage-remat spec {remat!r}; use e.g. "
+                             "'stage1' or 'stage12' (stages 1-4)")
+        return stages
+    return None
+
+
+def norm_act(norm, x, relu: bool, remat: bool = False):
+    """``norm(x)``, then a ReLU if ``relu``; with ``remat`` the two are
+    recomputed in the backward (the ``"convs"`` mode)."""
+    fn = (lambda t: torch.relu(norm(t))) if relu else norm
+    return checkpoint(fn, x) if remat else fn(x)
 
 
 class Conv2d(nn.Conv2d):
@@ -53,12 +82,13 @@ class BasicBlock(nn.Module):
             self.downsample_conv = conv(cin, filters, 1, stride)
             self.downsample_norm = BatchNorm(filters, dtype=dtype)
 
-    def forward(self, x):
-        y = torch.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
+    def forward(self, x, remat_norms: bool = False):
+        y = norm_act(self.bn1, self.conv1(x), True, remat_norms)
+        y = norm_act(self.bn2, self.conv2(y), False, remat_norms)
         residual = x
         if self.downsample_conv is not None:
-            residual = self.downsample_norm(self.downsample_conv(x))
+            residual = norm_act(self.downsample_norm, self.downsample_conv(x), False,
+                                remat_norms)
         return torch.relu(y + residual)
 
 
@@ -81,13 +111,14 @@ class Bottleneck(nn.Module):
             self.downsample_conv = conv(cin, out, 1, stride)
             self.downsample_norm = BatchNorm(out, dtype=dtype)
 
-    def forward(self, x):
-        y = torch.relu(self.bn1(self.conv1(x)))
-        y = torch.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
+    def forward(self, x, remat_norms: bool = False):
+        y = norm_act(self.bn1, self.conv1(x), True, remat_norms)
+        y = norm_act(self.bn2, self.conv2(y), True, remat_norms)
+        y = norm_act(self.bn3, self.conv3(y), False, remat_norms)
         residual = x
         if self.downsample_conv is not None:
-            residual = self.downsample_norm(self.downsample_conv(x))
+            residual = norm_act(self.downsample_norm, self.downsample_conv(x), False,
+                                remat_norms)
         return torch.relu(y + residual)
 
 
@@ -95,13 +126,17 @@ class ResNetEncoder(nn.Module):
     """ResNet backbone returning the smp-style 6-feature pyramid.
 
     Blocks are registered as ``stage{s}_block{b}`` (1-based stages), the
-    JAX package's module names.
+    JAX package's module names.  ``remat``: ``False``, ``True``, ``"convs"``
+    or ``"stageN..."`` (module docstring).
     """
 
     def __init__(self, stage_sizes, block_cls, in_channels: int = 3,
-                 num_filters: int = 64, dtype: torch.dtype = torch.bfloat16):
+                 num_filters: int = 64, dtype: torch.dtype = torch.bfloat16,
+                 remat=False):
         super().__init__()
+        _remat_stage_set(remat)                      # a bad stage spec raises here
         self.dtype = dtype
+        self.remat = remat
         self.stem_conv = conv(in_channels, num_filters, 7, 2)
         self.stem_norm = BatchNorm(num_filters, dtype=dtype)
         self.stages: List[List[str]] = []
@@ -123,9 +158,13 @@ class ResNetEncoder(nn.Module):
         y = torch.relu(self.stem_norm(self.stem_conv(x.to(self.dtype))))
         feats.append(y)                                          # /2
         y = F.max_pool2d(y, 3, stride=2, padding=1)
-        for names in self.stages:
+        remat_stages = _remat_stage_set(self.remat)
+        for stage, names in enumerate(self.stages, 1):
+            whole = (stage in remat_stages if remat_stages is not None
+                     else bool(self.remat) and self.remat != "convs")
             for name in names:
-                y = getattr(self, name)(y)
+                block = getattr(self, name)
+                y = checkpoint(block, y) if whole else block(y, self.remat == "convs")
             feats.append(y)                                      # /4 /8 /16 /32
         return feats
 
@@ -153,10 +192,10 @@ def encoder_out_channels(encoder_name: str):
 
 
 def build_encoder(encoder_name: str, in_channels: int = 3,
-                  dtype: torch.dtype = torch.bfloat16) -> ResNetEncoder:
+                  dtype: torch.dtype = torch.bfloat16, remat=False) -> ResNetEncoder:
     if encoder_name not in ENCODERS:
         raise ValueError(
             f"Unknown encoder '{encoder_name}'; available: {sorted(ENCODERS)}")
     spec = ENCODERS[encoder_name]
     return ResNetEncoder(spec["stage_sizes"], spec["block_cls"],
-                         in_channels=in_channels, dtype=dtype)
+                         in_channels=in_channels, dtype=dtype, remat=remat)

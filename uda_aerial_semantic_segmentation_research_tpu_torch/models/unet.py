@@ -14,14 +14,27 @@ channels that is blocks 3 and 4: two launches per forward.  The JAX
 space-to-depth packing is a TPU lane trick, numerically a plain conv,
 and is not ported.
 
-``Unet.forward`` takes NHWC input and returns float32 NHWC logits;
+``Unet.forward`` takes NHWC input and returns NHWC logits in
+``logits_dtype`` (float32 by default; bfloat16 halves the largest tensor
+of a train step and is value-identical when the head computes in bf16);
 inside, tensors are NCHW views in channels_last memory.  ``encode`` /
 ``decode`` split it at the encoder pyramid (kept NCHW), for the
 feature-level domain discriminator of ``models.uda``.
+
+``remat`` recomputes activations in the backward instead of saving them,
+with the JAX ``Unet``'s modes: ``True`` (encoder and decoder blocks),
+``"encoder"``, ``"decoder"``, ``"convs"`` / ``"encoder_convs"`` /
+``"decoder_convs"`` (conv outputs saved, each normalize(+ReLU) recomputed)
+and ``"stageN..."`` (those encoder stages' blocks).  Every mode computes the
+same logits, gradients and BatchNorm buffers as ``remat=False``, and the
+parameter names do not change, so checkpoints interchange.  ``clone``
+gives the same network under another ``remat`` or ``logits_dtype``,
+sharing the parameters and buffers (the JAX ``module.clone``).
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Optional, Sequence
 
 import torch
@@ -29,18 +42,22 @@ import torch.nn.functional as F
 from torch import nn
 
 from uda_aerial_semantic_segmentation_research_tpu_torch.models.resnet import (
+    _remat_stage_set,
     build_encoder,
     conv,
     encoder_out_channels,
+    norm_act,
 )
 from uda_aerial_semantic_segmentation_research_tpu_torch.ops.batch_norm import (
     BatchNorm,
+    checkpoint,
 )
 from uda_aerial_semantic_segmentation_research_tpu_torch.ops.conv_bn_relu import (
     conv_bn_relu,
 )
 
 FUSED_MAX_FILTERS = 32
+_KEEP = object()          # a ``clone`` option left as it is
 
 
 class DecoderBlock(nn.Module):
@@ -68,7 +85,7 @@ class DecoderBlock(nn.Module):
         y2 = conv_bn_relu(y.permute(0, 2, 3, 1).contiguous(), k3, inv, shift)
         return y2.permute(0, 3, 1, 2)
 
-    def forward(self, x, skip: Optional[torch.Tensor] = None):
+    def forward(self, x, skip: Optional[torch.Tensor] = None, remat_norms: bool = False):
         y = F.interpolate(x.to(self.dtype), scale_factor=2, mode="nearest")
         if skip is not None:
             y = torch.cat([y, skip.to(self.dtype)], dim=1)
@@ -77,17 +94,20 @@ class DecoderBlock(nn.Module):
                 and self.filters <= FUSED_MAX_FILTERS
                 and y.shape[2] % 2 == 0 and y.shape[3] % 2 == 0):
             return torch.relu(self.norm2(self._fused_conv2(y)))
-        x = torch.relu(self.norm1(y))
-        return torch.relu(self.norm2(self.conv2(x)))
+        x = norm_act(self.norm1, y, True, remat_norms)
+        return norm_act(self.norm2, self.conv2(x), True, remat_norms)
 
 
 class UnetDecoder(nn.Module):
-    """Five decoder blocks ``block0..block4`` over an NCHW pyramid."""
+    """Five decoder blocks ``block0..block4`` over an NCHW pyramid.
+    ``remat``: ``False``, ``True`` (each block recomputed) or ``"convs"``."""
 
     def __init__(self, encoder_channels: Sequence[int],
                  decoder_channels: Sequence[int] = (256, 128, 64, 32, 16),
-                 dtype: torch.dtype = torch.bfloat16, fused_eval: bool = False):
+                 dtype: torch.dtype = torch.bfloat16, fused_eval: bool = False,
+                 remat=False):
         super().__init__()
+        self.remat = remat
         # skips: /16, /8, /4, /2, none (features[1:-1] reversed)
         skip_ch = list(encoder_channels[1:-1])[::-1] + [0]
         cin = encoder_channels[-1]
@@ -100,8 +120,26 @@ class UnetDecoder(nn.Module):
         skips = list(features[1:-1])[::-1] + [None]
         x = features[-1]
         for i, skip in zip(range(self.n_blocks), skips):
-            x = getattr(self, f"block{i}")(x, skip)
+            block = getattr(self, f"block{i}")
+            if self.remat and self.remat != "convs":
+                x = checkpoint(block, x, skip)
+            else:
+                x = block(x, skip, self.remat == "convs")
         return x
+
+
+def resolve_remat(remat):
+    """The U-Net's ``remat`` -> ``(encoder remat, decoder remat)``, by the
+    JAX ``Unet.setup``'s table."""
+    if remat == "convs":
+        return "convs", "convs"
+    if remat == "encoder_convs":
+        return "convs", False
+    if remat == "decoder_convs":
+        return False, "convs"
+    if isinstance(remat, str) and remat.startswith("stage"):
+        return remat, False
+    return (remat is True or remat == "encoder"), (remat is True or remat == "decoder")
 
 
 class Unet(nn.Module):
@@ -111,17 +149,44 @@ class Unet(nn.Module):
                  in_channels: int = 3,
                  decoder_channels: Sequence[int] = (256, 128, 64, 32, 16),
                  activation: Optional[str] = None,
-                 dtype: torch.dtype = torch.bfloat16, fused_eval: bool = False):
+                 dtype: torch.dtype = torch.bfloat16, fused_eval: bool = False,
+                 remat=False, logits_dtype: torch.dtype = torch.float32):
         super().__init__()
         if activation not in (None, "softmax", "sigmoid"):
             raise ValueError(f"unknown activation {activation!r}")
         self.classes = classes
         self.activation = activation
         self.dtype = dtype
-        self.encoder = build_encoder(encoder_name, in_channels, dtype)
+        self.remat = remat
+        self.logits_dtype = logits_dtype
+        enc_remat, dec_remat = resolve_remat(remat)
+        self.encoder = build_encoder(encoder_name, in_channels, dtype, remat=enc_remat)
         self.decoder = UnetDecoder(encoder_out_channels(encoder_name),
-                                   decoder_channels, dtype, fused_eval)
+                                   decoder_channels, dtype, fused_eval, remat=dec_remat)
         self.segmentation_head = conv(decoder_channels[-1], classes, 3, bias=True)
+
+    def clone(self, *, remat=_KEEP, logits_dtype=_KEEP) -> "Unet":
+        """This U-Net with another ``remat`` and/or ``logits_dtype``, for running
+        forwards and backwards only.  The options are the clone's own, so
+        ``self`` computes as before; every parameter, buffer and block is
+        ``self``'s, shared and not copied.  So module-state calls belong on
+        ``self``: on the clone, ``.to()``, ``.half()``, ``register_buffer``
+        or a hook change the shared dicts and blocks without a word, and
+        ``train()`` / ``eval()`` set the shared blocks' mode but leave
+        ``self.training`` as it was."""
+        new = copy.copy(self)
+        new._modules = dict(self._modules)
+        if remat is not _KEEP:
+            enc_remat, dec_remat = resolve_remat(remat)
+            _remat_stage_set(enc_remat)
+            new.remat = remat
+            for name, value in (("encoder", enc_remat), ("decoder", dec_remat)):
+                part = copy.copy(getattr(self, name))
+                part.remat = value
+                setattr(new, name, part)
+        if logits_dtype is not _KEEP:
+            new.logits_dtype = logits_dtype
+        return new
 
     def encode(self, x):
         """(B, H, W, in_channels) -> the encoder pyramid ``[identity, /2, /4,
@@ -129,15 +194,15 @@ class Unet(nn.Module):
         return self.encoder.features(x.permute(0, 3, 1, 2))
 
     def _logits(self, features):
-        return self.segmentation_head(self.decoder(features)).float()
+        return self.segmentation_head(self.decoder(features)).to(self.logits_dtype)
 
     def decode(self, features):
-        """The pyramid of ``encode`` -> float32 logits (B, H, W, classes),
-        before any ``activation`` (the JAX ``Unet.decode``)."""
+        """The pyramid of ``encode`` -> logits (B, H, W, classes) in
+        ``logits_dtype``, before any ``activation`` (the JAX ``Unet.decode``)."""
         return self._logits(features).permute(0, 2, 3, 1).contiguous()
 
     def forward(self, x):
-        """(B, H, W, in_channels) -> float32 logits (B, H, W, classes)."""
+        """(B, H, W, in_channels) -> logits (B, H, W, classes) in ``logits_dtype``."""
         y = self._logits(self.encode(x))
         if self.activation == "softmax":
             y = torch.softmax(y, dim=1)

@@ -16,11 +16,22 @@ no gradient flows into them.
 
 Parameters are named ``scale``/``bias`` and buffers ``mean``/``var``, as
 in the JAX checkpoint tree.
+
+A forward that runs again for the same update -- the recompute of a
+``checkpoint`` region in the backward, or a pass whose statistics the step
+discards -- runs under ``frozen_statistics()``: train mode still normalizes
+with the batch statistics, but the running buffers stay as they are, so
+they end a step bit-identical to the same step without the second forward
+(flax's ``nn.remat`` threads the statistics of the first forward only).
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from uda_aerial_semantic_segmentation_research_tpu_torch.ops.channel_sums import (
@@ -31,6 +42,37 @@ from uda_aerial_semantic_segmentation_research_tpu_torch.utils.dtypes import to_
 
 EPS = 1e-5       # flax / torch default, as every BatchNorm of the JAX package
 MOMENTUM = 0.9   # flax convention (torch's 0.1), as every BatchNorm of the JAX package
+
+
+_FROZEN = threading.local()   # per thread: a recompute runs in autograd's worker thread
+
+
+@contextlib.contextmanager
+def frozen_statistics():
+    """Train-mode ``BatchNorm`` forwards inside leave their running buffers
+    as they are (they still normalize with the batch statistics)."""
+    before = statistics_frozen()
+    _FROZEN.on = True
+    try:
+        yield
+    finally:
+        _FROZEN.on = before
+
+
+def statistics_frozen() -> bool:
+    return getattr(_FROZEN, "on", False)
+
+
+def checkpoint(fn, *args):
+    """``fn(*args)`` with its activations recomputed in the backward
+    (``torch.utils.checkpoint``, non-reentrant) instead of saved; the
+    recompute runs under ``frozen_statistics()``.  With gradients off it is
+    ``fn(*args)``: nothing would be saved."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False,
+        context_fn=lambda: (contextlib.nullcontext(), frozen_statistics()))
 
 
 def _per_channel(v, ndim):
@@ -111,6 +153,8 @@ class BatchNorm(nn.Module):
                              f"{tuple(x.shape)}")
         if self.training:
             y, mean, var = bn_train(x, self.scale, self.bias, self.dtype)
+            if statistics_frozen():
+                return y
             with torch.no_grad():
                 self.mean.copy_(MOMENTUM * self.mean + (1.0 - MOMENTUM) * mean)
                 self.var.copy_(MOMENTUM * self.var + (1.0 - MOMENTUM) * var)

@@ -1,12 +1,18 @@
 """Training: states, step factories, the three phases' trainers, the phase
 lifecycle, the three-phase pipeline and the GRL stack's ``MultiPhaseTrainer``.
 
-The trainers and the phase lifecycle are exported here, as from the JAX
-package's ``training``."""
+Exports the names of the JAX package's ``training.__all__``;
+``run_pipeline`` is imported when called, as there."""
 
+from uda_aerial_semantic_segmentation_research_tpu_torch.training.state import (
+    AdversarialState,
+    TrainState,
+)
 from uda_aerial_semantic_segmentation_research_tpu_torch.training.train import (
     EarlyStopping,
     SegmentationTrainer,
+    launch_tensorboard,
+    load_class_dict,
     train_model,
 )
 from uda_aerial_semantic_segmentation_research_tpu_torch.training.adversarial_trainer import (
@@ -23,5 +29,17 @@ from uda_aerial_semantic_segmentation_research_tpu_torch.training.trainer_phases
     MultiPhaseTrainer,
 )
 
-__all__ = ["AdversarialTrainer", "EarlyStopping", "MultiPhaseTrainer", "PhaseManager",
-           "SegmentationTrainer", "TrainingPhase", "UnsupervisedTrainer", "train_model"]
+__all__ = ["AdversarialState", "AdversarialTrainer", "EarlyStopping", "MultiPhaseTrainer",
+           "PhaseManager", "SegmentationTrainer", "TrainState", "TrainingPhase",
+           "UnsupervisedTrainer", "launch_tensorboard", "load_class_dict", "run_pipeline",
+           "train_model"]
+
+
+def run_pipeline(*args, **kwargs):
+    """The three-phase pipeline (``training.pipeline.run_pipeline``, imported
+    on the first call)."""
+    from uda_aerial_semantic_segmentation_research_tpu_torch.training.pipeline import (
+        run_pipeline as run,
+    )
+
+    return run(*args, **kwargs)

@@ -3,12 +3,13 @@
 Counterpart of the JAX package's ``training/steps.py``.  Ported so far:
 the phase-1 supervised train step, the eval step and the serving step
 (``make_supervised_train_step``, ``make_eval_step``, ``make_predict_step``),
-the phase-2 adversarial step (``make_adversarial_train_step``), the
-phase-3 unsupervised step (``make_unsupervised_train_step``) and the GRL
+the phase-2 adversarial step (``make_adversarial_train_step``, with
+``make_adversarial_sequential_step`` its alias), the phase-3
+unsupervised step (``make_unsupervised_train_step``) and its
+memory-decomposed twin (``make_unsupervised_sequential_step``), and the GRL
 stack's steps (``make_grl_sequential_step``, with ``make_grl_train_step``
-its alias, and ``make_grl_eval_step``); the JAX package's sequential twins of the
-adversarial and unsupervised steps are not ported.  Each factory
-closes over the static pieces and returns an eager function.
+its alias, and ``make_grl_eval_step``).  Each factory closes over the
+static pieces and returns an eager function.
 Properties shared by the steps:
 
 - raw uint8 batches go straight to the device; dequantization,
@@ -32,6 +33,9 @@ from uda_aerial_semantic_segmentation_research_tpu_torch.ops.augment import (
     AugmentConfig,
     augment_batch,
     normalize_images,
+)
+from uda_aerial_semantic_segmentation_research_tpu_torch.ops.batch_norm import (
+    frozen_statistics,
 )
 from uda_aerial_semantic_segmentation_research_tpu_torch.ops.fused_ce import (
     fused_cross_entropy,
@@ -198,6 +202,27 @@ def _draws(draws, i):
     return (None, None) if draws is None or draws[i] is None else draws[i]
 
 
+def _cast(x, dtype):
+    return x if x is None or dtype is None else x.to(dtype)
+
+
+def _source_target_inputs(model, generator, src_images, src_masks, tgt_images, aug_cfg,
+                          draws, xs_dtype=None, xt_dtype=None):
+    """The source batch (with masks) and the target batch (without) on the
+    model's device, each through ``augment_batch``, drawing in that order;
+    the images cast to ``xs_dtype`` / ``xt_dtype`` where given."""
+    src_images, src_masks, tgt_images = _to_device(model_device(model), src_images,
+                                                   src_masks, tgt_images)
+    with torch.no_grad():
+        abc, params = _draws(draws, 0)
+        xs, ms = augment_batch(generator, src_images, src_masks, cfg=aug_cfg, abc=abc,
+                               params=params)
+        abc, params = _draws(draws, 1)
+        xt, _ = augment_batch(generator, tgt_images, None, cfg=aug_cfg, abc=abc,
+                              params=params)
+    return _cast(xs, xs_dtype), ms, _cast(xt, xt_dtype)
+
+
 def make_adversarial_train_step(seg: torch.nn.Module, disc: torch.nn.Module,
                                 num_classes: int, lambda_adv: float = 0.001,
                                 aug_cfg: AugmentConfig = WEAK, concat_disc: bool = False):
@@ -223,32 +248,49 @@ def make_adversarial_train_step(seg: torch.nn.Module, disc: torch.nn.Module,
     the generator term has no gradient with respect to the segmentation
     parameters: the U-Net's update is that of ``lambda_adv=0``.
 
+    The step runs as the JAX memory-decomposed step's three programs, which
+    ``step.programs`` names: ``prep`` (both augmentations), ``d_step``
+    (step A), ``g_step`` (step B).  Eagerly D's graph is freed before G's
+    forward, so this is also the JAX joint step's update: only the
+    augmented batches live between the phases, ``xs`` in the modules'
+    compute dtype when the two modules' dtypes agree (float32 otherwise),
+    ``xt`` in the discriminator's.  Each module casts its input at its
+    first conv, so the cast changes no value.
+
     Metrics (device tensors): ``loss``, ``seg_loss``, ``adv_loss``,
     ``d_loss``, ``source_domain_prob`` / ``target_domain_prob`` (step A's
     logits through a sigmoid, (B, 1)), and the segmentation metrics.
     """
     adv = AdversarialLoss(lambda_adv)
+    seg_dtype, disc_dtype = getattr(seg, "dtype", None), getattr(disc, "dtype", None)
+    xs_dtype = seg_dtype if seg_dtype == disc_dtype else None
+
+    def prep(generator, src_images, src_masks, tgt_images, draws):
+        return _source_target_inputs(seg, generator, src_images, src_masks, tgt_images,
+                                     aug_cfg, draws, xs_dtype, disc_dtype)
+
+    def d_step(disc_state, xs, xt):
+        return _adv_d_update(adv, disc, disc_state, xs, xt, concat_disc)
+
+    def g_step(seg_state, xs, ms, xt):
+        return _adv_g_update(adv, seg, disc, num_classes, seg_state, xs, ms, xt)
 
     def step(state, generator, src_images, src_masks, tgt_images, draws=None):
         if state.seg.model is not seg or state.disc.model is not disc:
             raise ValueError("the state belongs to other models than the step")
-        src_images, src_masks, tgt_images = _to_device(model_device(seg), src_images,
-                                                       src_masks, tgt_images)
-        with torch.no_grad():
-            abc, params = _draws(draws, 0)
-            xs, ms = augment_batch(generator, src_images, src_masks, cfg=aug_cfg, abc=abc,
-                                   params=params)
-            abc, params = _draws(draws, 1)
-            xt, _ = augment_batch(generator, tgt_images, None, cfg=aug_cfg, abc=abc,
-                                  params=params)
-
-        d_loss, s_logit, t_logit = _adv_d_update(adv, disc, state.disc, xs, xt, concat_disc)
-        metrics = _adv_g_update(adv, seg, disc, num_classes, state.seg, xs, ms, xt)
+        xs, ms, xt = prep(generator, src_images, src_masks, tgt_images, draws)
+        d_loss, s_logit, t_logit = d_step(state.disc, xs, xt)
+        metrics = g_step(state.seg, xs, ms, xt)
         metrics.update({"d_loss": d_loss, "source_domain_prob": torch.sigmoid(s_logit),
                         "target_domain_prob": torch.sigmoid(t_logit)})
         return state, metrics
 
+    step.programs = {"prep": prep, "d_step": d_step, "g_step": g_step}
     return step
+
+
+# the JAX package's memory-decomposed phase-2 step: eagerly the same update
+make_adversarial_sequential_step = make_adversarial_train_step
 
 
 def _adv_d_update(adv, disc, disc_state, xs, xt, concat_disc=False):
@@ -320,6 +362,51 @@ def chunked_consistency(cons_fn, rows: int = 32):
     return f
 
 
+def _unsup_inputs(state, seg, disc, generator, tgt_images, sup_images, sup_masks, draws,
+                  aug_cfg, with_supervised, view_dtype=None):
+    """Checks a phase-3 state, then ``(tgt_images, v1, v2, xs, ms)`` on the
+    U-Net's device: the two target views, then with ``with_supervised`` the
+    ``WEAK`` view of the supervised batch (``None`` otherwise), drawn in
+    that order, the views cast to ``view_dtype``."""
+    held = {id(p) for p in state.model.parameters()}
+    if not all(id(p) in held for m in (seg, disc) for p in m.parameters()):
+        raise ValueError("the state does not hold both models' parameters")
+    if not state.skip_nonfinite:
+        raise ValueError("the phase-3 state must be built with skip_nonfinite=True")
+    if with_supervised and (sup_images is None or sup_masks is None):
+        raise ValueError("with_supervised needs sup_images and sup_masks")
+    tgt_images, sup_images, sup_masks = _to_device(model_device(seg), tgt_images, sup_images,
+                                                   sup_masks)
+    with torch.no_grad():
+        views = []
+        for i in range(2):
+            abc, params = _draws(draws, i)
+            views.append(_cast(augment_batch(generator, tgt_images, None, cfg=aug_cfg, abc=abc,
+                                             params=params)[0], view_dtype))
+        xs = ms = None
+        if with_supervised:
+            abc, params = _draws(draws, 2)
+            xs, ms = augment_batch(generator, sup_images, sup_masks, cfg=WEAK, abc=abc,
+                                   params=params)
+    return tgt_images, views[0], views[1], _cast(xs, view_dtype), ms
+
+
+def _kept_buffers(seg, disc):
+    """Both models' buffers and exact copies of them (one launch)."""
+    with torch.no_grad():
+        buffers = [*seg.buffers(), *disc.buffers()]
+        return buffers, torch._foreach_mul(buffers, 1.0)
+
+
+def _finish_unsup(state, finite, buffers, kept):
+    """The non-finite guard's update: Adam skipped and the buffers put back
+    where ``finite`` is false, without a host read."""
+    state.apply_gradients(finite)
+    with torch.no_grad():
+        for b, k in zip(buffers, kept):
+            torch.where(finite, b, k, out=b)
+
+
 def make_unsupervised_train_step(seg: torch.nn.Module, disc: torch.nn.Module,
                                  num_classes: int, fine_tuning_loss: FineTuningLoss,
                                  aug_cfg: AugmentConfig = STRONG,
@@ -355,46 +442,24 @@ def make_unsupervised_train_step(seg: torch.nn.Module, disc: torch.nn.Module,
 
     def step(state, generator, tgt_images, epoch, sup_images=None, sup_masks=None,
              draws=None):
-        held = {id(p) for p in state.model.parameters()}
-        if not all(id(p) in held for m in (seg, disc) for p in m.parameters()):
-            raise ValueError("the state does not hold both models' parameters")
-        if not state.skip_nonfinite:
-            raise ValueError("the phase-3 state must be built with skip_nonfinite=True")
-        if with_supervised and (sup_images is None or sup_masks is None):
-            raise ValueError("with_supervised needs sup_images and sup_masks")
-        device = model_device(seg)
-        tgt_images, sup_images, sup_masks = _to_device(device, tgt_images, sup_images,
-                                                       sup_masks)
-        with torch.no_grad():
-            views = []
-            for i in range(2):
-                abc, params = _draws(draws, i)
-                views.append(augment_batch(generator, tgt_images, None, cfg=aug_cfg, abc=abc,
-                                           params=params)[0])
-            x0 = normalize_images(tgt_images)
-            xs = ms = None
-            if with_supervised:
-                abc, params = _draws(draws, 2)
-                xs, ms = augment_batch(generator, sup_images, sup_masks, cfg=WEAK, abc=abc,
-                                       params=params)
-            buffers = [*seg.buffers(), *disc.buffers()]
-            kept = torch._foreach_mul(buffers, 1.0)       # exact copies, one launch
+        tgt_images, v1, v2, xs, ms = _unsup_inputs(
+            state, seg, disc, generator, tgt_images, sup_images, sup_masks, draws, aug_cfg,
+            with_supervised)
+        x0 = normalize_images(tgt_images)
+        buffers, kept = _kept_buffers(seg, disc)
 
         seg.train()
         disc.train()
         state.optimizer.zero_grad(set_to_none=True)
-        p1 = seg(views[0])
-        p2 = seg(views[1])
+        p1 = seg(v1)
+        p2 = seg(v2)
         domain_logits = disc(x0, return_logits=True)
         sup_pred = seg(xs) if with_supervised else None
         losses = loss_fn(p1, p2, domain_logits, epoch, supervised_pred=sup_pred,
                          supervised_target=ms)
         losses["total"].backward()
         finite = torch.isfinite(losses["total"])
-        state.apply_gradients(finite)
-        with torch.no_grad():
-            for b, k in zip(buffers, kept):
-                torch.where(finite, b, k, out=b)
+        _finish_unsup(state, finite, buffers, kept)
 
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["finite"] = finite
@@ -404,27 +469,123 @@ def make_unsupervised_train_step(seg: torch.nn.Module, disc: torch.nn.Module,
     return step
 
 
+def make_unsupervised_sequential_step(seg: torch.nn.Module, disc: torch.nn.Module,
+                                      num_classes: int, fine_tuning_loss: FineTuningLoss,
+                                      aug_cfg: AugmentConfig = STRONG,
+                                      with_supervised: bool = False, carry_dtype=None):
+    """The memory-decomposed phase-3 update: ``make_unsupervised_train_step``'s
+    contract, draws, metrics and non-finite guard, with the same total
+    gradient computed as a sum of partials, one forward and backward at a
+    time (the JAX ``make_unsupervised_sequential_step``):
+
+    - the consistency term obeys ``d cons(z1(p), z2(p)) = d cons(z1(p),
+      sg(z2)) + d cons(sg(z1), z2(p))``, so two single-view backward passes
+      against the other view's frozen logits give the joint gradient; the
+      domain-confusion and supervised terms touch their own forwards;
+    - the passes, in the JAX step's order: ``grad_disc`` (D on ``x0``,
+      normalized inside the pass); ``fwd_view1`` (train mode, no gradient:
+      the view-1 logits ``z1``; it moves the statistics); ``grad_view2``
+      (``cons(sg(z1), p2) * w``, ``w = consistency_weight * rampup``; moves
+      them); ``grad_view1`` (``cons(p1, sg(z2)) * w`` under
+      ``frozen_statistics``: the statistics stay as ``fwd_view1`` left
+      them); ``grad_sup`` (the supervised dice; moves them); then one clipped
+      Adam update over the gradients summed in ``.grad`` (the clip sees the
+      sum);
+    - the statistics chain v1 -> v2 -> supervised as in the joint step, so
+      the buffers end bit-identical to its.
+
+    Carried between passes: the views in the U-Net's compute dtype (its
+    first conv casts there anyway) and ``z1``, ``z2`` in ``carry_dtype``
+    (``None``: the logits' dtype, numerically the joint step; bfloat16 halves
+    the largest carries at a small divergence in the KL targets).  Each is
+    dropped after its last use, where the JAX step donates it, so the peak
+    is one forward and backward plus the carries.  ``step.programs`` names
+    the passes.
+    """
+    ftl = fine_tuning_loss
+    cons = chunked_consistency(ftl.consistency_loss)
+    view_dtype, disc_dtype = getattr(seg, "dtype", None), getattr(disc, "dtype", None)
+
+    def carry(z):
+        return _cast(z.detach(), carry_dtype)
+
+    def prep(state, generator, tgt_images, sup_images, sup_masks, draws):
+        return _unsup_inputs(state, seg, disc, generator, tgt_images, sup_images, sup_masks,
+                             draws, aug_cfg, with_supervised, view_dtype)
+
+    def grad_disc(tgt_images, r):
+        logits = disc(_cast(normalize_images(tgt_images), disc_dtype), return_logits=True)
+        dom = ftl.domain_loss.generator_loss(logits)
+        (dom * ftl.domain_weight * r).backward()
+        return dom.detach(), logits.detach()
+
+    def fwd_view1(v1):
+        with torch.no_grad():
+            return carry(seg(v1))
+
+    def grad_view2(v2, z1, w):
+        p2 = seg(v2)
+        c = cons(z1, p2)
+        (c * w).backward()
+        return c.detach(), carry(p2)
+
+    def grad_view1(v1, z2, w):
+        with frozen_statistics():
+            p1 = seg(v1)
+        (cons(p1, z2) * w).backward()
+
+    def grad_sup(xs, ms):
+        s = ftl.supervised_loss(seg(xs), ms)
+        (s * ftl.supervised_weight).backward()
+        return s.detach()
+
+    def combine(state, cons_v, dom_v, sup_v, r, domain_logits, buffers, kept):
+        total = cons_v * ftl.consistency_weight * r + dom_v * ftl.domain_weight * r
+        if with_supervised:
+            total = total + sup_v * ftl.supervised_weight
+        finite = torch.isfinite(total)
+        _finish_unsup(state, finite, buffers, kept)
+        return {"total": total, "consistency": cons_v, "domain_confusion": dom_v,
+                "supervised": sup_v, "rampup_weight": r, "finite": finite,
+                "domain_prob": torch.sigmoid(domain_logits)}
+
+    def step(state, generator, tgt_images, epoch, sup_images=None, sup_masks=None,
+             draws=None):
+        tgt_images, v1, v2, xs, ms = prep(state, generator, tgt_images, sup_images, sup_masks,
+                                          draws)
+        buffers, kept = _kept_buffers(seg, disc)
+        r = ftl.rampup(epoch, tgt_images.device)
+        w = ftl.consistency_weight * r
+        seg.train()
+        disc.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        # the discriminator first: its buffers die before the view passes
+        dom_v, domain_logits = grad_disc(tgt_images, r)
+        z1 = fwd_view1(v1)
+        cons_v, z2 = grad_view2(v2, z1, w)
+        del v2, z1
+        grad_view1(v1, z2, w)
+        del v1, z2
+        if with_supervised:
+            sup_v = grad_sup(xs, ms)
+            del xs, ms
+        else:
+            sup_v = torch.zeros((), dtype=torch.float32, device=r.device)
+        return state, combine(state, cons_v, dom_v, sup_v, r, domain_logits, buffers, kept)
+
+    step.programs = {"prep": prep, "grad_disc": grad_disc, "fwd_view1": fwd_view1,
+                     "grad_view2": grad_view2, "grad_view1": grad_view1, "combine": combine}
+    if with_supervised:
+        step.programs["grad_sup"] = grad_sup
+    return step
+
+
 # ---------------------------------------------------------------------------
 # the GRL stack: one model, one optimizer, the domain head behind a GRL
 # ---------------------------------------------------------------------------
 def _grl_seg_loss(seg_loss: str):
     _check_seg_loss(seg_loss)
     return SMPDiceLoss() if seg_loss == "dice" else softmax_cross_entropy
-
-
-def _grl_inputs(model, generator, src_images, src_masks, tgt_images, aug_cfg, draws):
-    """The source batch (with masks) and the target batch (without) on the
-    model's device, each through ``augment_batch``, drawing in that order."""
-    src_images, src_masks, tgt_images = _to_device(model_device(model), src_images,
-                                                   src_masks, tgt_images)
-    with torch.no_grad():
-        abc, params = _draws(draws, 0)
-        xs, ms = augment_batch(generator, src_images, src_masks, cfg=aug_cfg, abc=abc,
-                               params=params)
-        abc, params = _draws(draws, 1)
-        xt, _ = augment_batch(generator, tgt_images, None, cfg=aug_cfg, abc=abc,
-                              params=params)
-    return xs, ms, xt
 
 
 def _domain_acc(d_src, d_tgt):
@@ -472,8 +633,8 @@ def make_grl_sequential_step(model: torch.nn.Module, num_classes: int,
     def step(state, generator, src_images, src_masks, tgt_images, alpha, draws=None):
         if state.model is not model:
             raise ValueError("the state belongs to another model than the step")
-        xs, ms, xt = _grl_inputs(model, generator, src_images, src_masks, tgt_images,
-                                 aug_cfg, draws)
+        xs, ms, xt = _source_target_inputs(model, generator, src_images, src_masks,
+                                           tgt_images, aug_cfg, draws)
         model.train()
         state.optimizer.zero_grad(set_to_none=True)
         seg, d_src = model(xs, domain_adaptation=True, alpha=alpha)

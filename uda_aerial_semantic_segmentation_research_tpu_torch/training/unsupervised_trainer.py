@@ -12,21 +12,27 @@ reuses that model's discriminator when it has one (a fresh one otherwise).
 As in the JAX trainer, both slots of the domain metrics receive the target
 probabilities (phase 3 has no source batch).
 
-Options of the JAX trainer that the port does not implement yet, with what
-they resolve to (both memory devices are gradient-exact in the JAX package,
-so leaving them out changes memory, not results; ``ROADMAP.md`` A.9):
+The memory options resolve as in the JAX trainer, with the card in the
+TPU's place (``resolve_phase3_options``); remat, the sequential split and
+the bf16 logits are exact, the bf16 carry rounds the KL targets:
 
-- ``remat``: ``"auto"`` (JAX: encoder remat) resolves to ``False``; a B=32
-  512 px step fits the card without it.  Any other value than ``"auto"`` /
-  ``False`` raises ``NotImplementedError``.
-- ``sequential``: ``None`` resolves to ``False``, the JAX rule off the TPU;
-  ``True`` raises, and so does a ``carry_dtype``.
-- the bf16 ``logits_dtype`` clone of the U-Net: the port's U-Net returns
-  float32 logits.
+- ``remat``: ``"auto"`` is ``"encoder"`` (per-block recompute of the
+  encoder); any ``Unet`` remat mode is accepted;
+- ``sequential``: ``None`` is on when the trainer's device is CUDA
+  (``make_unsupervised_sequential_step``, one forward and backward at a
+  time), with ``carry_dtype=torch.bfloat16`` unless one is given; off on the
+  CPU (the joint ``make_unsupervised_train_step``);
+- a bf16 U-Net with float32 logits computes bf16 logits inside the step
+  (value-identical: the head computes in bf16).
+
+The step runs a ``Unet.clone`` carrying these options, which shares the
+model's parameters and buffers: ``self.model`` itself keeps its own remat
+and logits dtype for validation, prediction and checkpoints.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import numpy as np
@@ -55,8 +61,17 @@ from uda_aerial_semantic_segmentation_research_tpu_torch.training.train import (
 _LOSS_NAMES = ("total", "consistency", "domain_confusion", "supervised", "rampup_weight")
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md A.9)")
+def resolve_phase3_options(device, remat="auto", sequential: Optional[bool] = None,
+                           carry_dtype=None):
+    """``(remat, sequential, carry_dtype)`` as the trainer runs them on
+    ``device``: ``"auto"`` -> ``"encoder"``; ``sequential=None`` -> whether
+    ``device`` is CUDA, and then a missing ``carry_dtype`` -> bfloat16."""
+    remat = "encoder" if remat == "auto" else remat
+    if sequential is None:
+        sequential = torch.device(device).type == "cuda"
+        if sequential and carry_dtype is None:
+            carry_dtype = torch.bfloat16
+    return remat, sequential, carry_dtype
 
 
 class UnsupervisedTrainer(SegmentationTrainer):
@@ -66,12 +81,6 @@ class UnsupervisedTrainer(SegmentationTrainer):
                  domain_weight: float = 0.1, supervised_weight: float = 0.1,
                  rampup_length: int = 40, log_interval: int = 10, patience: int = 7,
                  remat="auto", sequential: Optional[bool] = None, carry_dtype=None):
-        if remat not in ("auto", False):
-            raise _not_ported(f"remat={remat!r}")
-        if sequential:
-            raise _not_ported("the sequential phase-3 step")
-        if carry_dtype is not None:
-            raise _not_ported("carry_dtype (the sequential phase-3 step)")
         if isinstance(model, DomainAdaptationModel):
             seg, discriminator = model.segmentation_model, model.discriminator
         else:
@@ -90,9 +99,8 @@ class UnsupervisedTrainer(SegmentationTrainer):
         self.domain_metrics = DomainAdaptationMetrics()
         self.log_interval = log_interval
         self.patience = patience
-        self.remat = False
-        self.sequential = False
-        self.carry_dtype = None
+        self.remat, self.sequential, self.carry_dtype = resolve_phase3_options(
+            self.device, remat, sequential, carry_dtype)
 
         self.best_score = float("-inf")
         self.best_epoch = 0
@@ -106,11 +114,28 @@ class UnsupervisedTrainer(SegmentationTrainer):
         return TrainState(self.domain_model, adam(learning_rate, clip_norm=1.0),
                           skip_nonfinite=True)
 
+    def _step_model(self):
+        """The U-Net the step runs: ``self.model``, or a clone of it (shared
+        parameters and buffers) with the trainer's remat and, for a bf16
+        U-Net with float32 logits, bf16 logits."""
+        changes = {}
+        if getattr(self.model, "remat", self.remat) != self.remat:
+            changes["remat"] = self.remat
+        if (getattr(self.model, "dtype", None) == torch.bfloat16
+                and getattr(self.model, "logits_dtype", None) == torch.float32):
+            changes["logits_dtype"] = torch.bfloat16
+        return self.model.clone(**changes) if changes else self.model
+
     def _get_unsup_step(self, with_supervised: bool):
         if with_supervised not in self._unsup_steps:
-            self._unsup_steps[with_supervised] = step_lib.make_unsupervised_train_step(
-                self.model, self.discriminator, self.num_classes, self.fine_tuning_loss,
-                with_supervised=with_supervised)
+            if self.sequential:
+                make = functools.partial(step_lib.make_unsupervised_sequential_step,
+                                         carry_dtype=self.carry_dtype)
+            else:
+                make = step_lib.make_unsupervised_train_step
+            self._unsup_steps[with_supervised] = make(
+                self._step_model(), self.discriminator, self.num_classes,
+                self.fine_tuning_loss, with_supervised=with_supervised)
         return self._unsup_steps[with_supervised]
 
     # ------------------------------------------------------------------
