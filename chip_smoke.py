@@ -81,7 +81,7 @@
    model (plain versions), WEAK in float32 with the same seeded draws
    (made once on the host);
 8. prints one JSON line of kernel results (launches summed over the main
-   paths of 4, 5, 6, 9, 10, 11, 12 and 13), the card line again, and last
+   paths of 4, 5, 6, 9, 10, 11, 12, 13 and 14), the card line again, and last
    ``{"ok": true, "device": {...}}``.
 9. (after 7, before 8 prints; in a spawned process of its own, whose
    launch counts 8 adds in) drives the phase-1 trainer,
@@ -204,8 +204,34 @@
    logits.  Last, the sums kernels against their plain versions at every
    BatchNorm input whose statistics were frozen (the recompute and
    ``grad_view1``), untimed, at phase 3's tolerance.  Prints a
-   ``production`` line.  The script's own wall time is printed before the
-   ``kernels`` line.
+   ``production`` line.
+14. (after 13, in a spawned process of its own) the other families of
+   ``create_model`` -- FPN, PSPNet, Linknet, UnetPlusPlus, DeepLabV3Plus,
+   PAN, MAnet at resnet34 -- and the U-Net at mobilenet_v2
+   (``fused_eval=True``), each as ``create_model`` builds it (23 classes,
+   512 px, bf16, seeded weights).  First the models' resize on the card:
+   every route keeps channels_last, and whether the antialiased bilinear
+   runs in bf16 with a backward there.  Per model: ``predict_batch`` at B=32
+   (2 ``conv_bn_relu`` launches for the mobilenet U-Net, none for the
+   families), the forward alone (CUDA events) and its peak; then, at B=32,
+   the census of BatchNorm inputs on a copy's first step (every input channels_last), 3 steps of
+   ``make_supervised_train_step`` (``WEAK``, plain CE, ``adam(1e-4)``) with
+   exactly one ``channel_sums`` and one ``channel_dual_sums`` per BatchNorm
+   (40, 41, 51, 56, 45, 49, 45, 62), one ``dihedral_normalize`` and nothing
+   else a step, finite losses, every buffer moved and every parameter moved
+   or without a gradient, the bare step (``measure_step``: p50 of 5, peak,
+   one step under ``set_sync_debug_mode("error")``), device ms by kind for
+   PSPNet, DeepLabV3Plus and the mobilenet U-Net; one float32 step (B=4, 128 px,
+   WEAK with host draws) on the card against a CPU copy, phase 7's
+   tolerances.  Then ``train_model`` with ``Config.MODEL_NAME =
+   "DeepLabV3Plus"`` for 1 epoch (2 steps) over phase 9's kind of
+   in-memory tiles, its launches, and its ``final_model.pth`` reloaded
+   through ``from_jax_state_dict`` to bit-identical logits.  Last the sums
+   kernels against their plain versions at every BatchNorm input shape no
+   earlier phase has (bulk and generic path, timed as in 3 with
+   ``torch.var_mean`` as the library call).  Prints an ``architectures``
+   line.  The script's own wall time is printed before the ``kernels``
+   line.
 
 Any failed check raises and the script exits non-zero; without a CUDA
 device it exits non-zero before printing any result.  It imports
@@ -387,13 +413,15 @@ def check_kernel(conv_bn_relu, reference, gen, shape, dtype, affine, timed):
     return res
 
 
-def profile_forward(fn, reps: int = 3, top: int = 8):
+def profile_forward(fn, reps: int = 3, top: int = 8, categories=None):
     """Device time by kernel over ``reps`` calls of ``fn`` (torch.profiler).
 
     Returns per-call device ms (kernels, copies and fills on the device),
     the device busy share (union of device intervals over the host wall
-    time of the window), and the ``top`` device functions by time.
+    time of the window), and the ``top`` device functions by time; device
+    functions grouped by ``categories`` (``PROFILE_CATEGORIES`` by default).
     """
+    categories = PROFILE_CATEGORIES if categories is None else categories
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -426,12 +454,12 @@ def profile_forward(fn, reps: int = 3, top: int = 8):
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     by_category, launches = {}, collections.Counter()
     for name, us in by_name.items():
-        cat = next((c for c, keys in PROFILE_CATEGORIES
+        cat = next((c for c, keys in categories
                     if any(k in name for k in keys)), "other")
         by_category[cat] = by_category.get(cat, 0.0) + us / 1e3 / reps
         launches[cat] += count[name]
     other = sorted(((us, name) for name, us in by_name.items()
-                    if not any(k in name for _, keys in PROFILE_CATEGORIES for k in keys)),
+                    if not any(k in name for _, keys in categories for k in keys)),
                    reverse=True)[:4]
     return {"device_ms_per_call": total_us / 1e3 / reps,
             "other_top": [{"ms": us / 1e3 / reps, "launches": count[name] / reps,
@@ -1666,6 +1694,66 @@ def pipeline_expected_launches(n_unet_bn: int, n_disc_bn: int, n_block_bn: int) 
             # block BatchNorms of both grad-bearing passes
             "make_unsupervised_sequential_step": counts(
                 3 * n_unet_bn + 2 * n_block_bn + n_disc_bn, 2 * n_unet_bn + n_disc_bn, 2)}
+
+
+def f32_draws(augment, host_rng, batch, tile):
+    """A seeded uint8 batch and float32 WEAK's draws for it, made once on the
+    host: a CUDA and a CPU generator draw different numbers."""
+    small = train_batches(host_rng, 1, batch=batch, tile=tile)[0]
+    cfg32 = dataclasses.replace(augment.WEAK, compute_dtype="float32")
+    host_gen = torch.Generator().manual_seed(SEED)
+    abc = augment._sample_dihedral(host_gen, batch, cfg32)
+    params = augment.sample_params(host_gen, small[0].shape, cfg32, has_masks=True)
+    if not any(d.do.any() for d in (*params.warp, *params.photometric) if d is not None):
+        raise AssertionError("the f32 step's draws select no augmentation stage")
+    return small, cfg32, abc, params
+
+
+def f32_step_card_vs_cpu(label, cpu_model, draws, counters, head, fused_ce=False) -> dict:
+    """One float32 train step of ``make_supervised_train_step`` on the card
+    (kernels) against the same step on ``cpu_model`` (plain versions), same
+    weights and draws.  Tolerances: loss 1e-4 relative; hist may differ by
+    0.1% of the pixels (argmax of near-ties); all gradients together 5e-2
+    relative in L2 and the ``head`` kernel 1e-3 of its largest entry --
+    through the whole network single ReLU units flip under float32 noise
+    (tests/test_torch_train_step.py)."""
+    from uda_aerial_semantic_segmentation_research_tpu_torch.training.state import (
+        TrainState,
+        adam,
+    )
+    from uda_aerial_semantic_segmentation_research_tpu_torch.training.steps import (
+        make_supervised_train_step,
+    )
+
+    small, cfg32, abc, params = draws
+    runs = {}
+    for where in ("card", "cpu"):
+        m32 = copy.deepcopy(cpu_model).to(PIPE_DEVICE) if where == "card" else cpu_model
+        reset_counts(counters)
+        _, met = make_supervised_train_step(m32, CLASSES, aug_cfg=cfg32, fused_ce=fused_ce)(
+            TrainState(m32, adam(1e-4)), None, *small, abc=abc, params=params)
+        torch.cuda.synchronize()
+        if (sum(read_counts(counters).values()) > 0) != (where == "card"):
+            raise AssertionError(f"{label}: kernel launches on the {where}: "
+                                 f"{read_counts(counters)}")
+        runs[where] = (met["loss"].item(), met["hist"].cpu(),
+                       {k: p.grad.detach().cpu() for k, p in m32.named_parameters()
+                        if p.grad is not None})
+        del m32
+    (loss_gpu, hist_gpu, g_gpu), (loss_cpu, hist_cpu, g_cpu) = runs["card"], runs["cpu"]
+    if set(g_gpu) != set(g_cpu):
+        raise AssertionError(f"{label}: the parameters with a gradient differ")
+    flat = lambda g: torch.cat([g[k].reshape(-1) for k in sorted(g)])  # noqa: E731
+    grad_rel_l2 = ((flat(g_gpu) - flat(g_cpu)).norm() / flat(g_cpu).norm()).item()
+    head_err = ((g_gpu[head] - g_cpu[head]).abs().max() / g_cpu[head].abs().max()).item()
+    hist_l1 = (hist_gpu - hist_cpu).abs().sum().item()
+    res = {"loss_gpu": loss_gpu, "loss_cpu": loss_cpu, "hist_l1_diff": hist_l1,
+           "grad_rel_l2": grad_rel_l2, "head_kernel_grad_max_rel_err": head_err}
+    if (abs(loss_gpu - loss_cpu) > 1e-4 * abs(loss_cpu) or grad_rel_l2 > 5e-2
+            or head_err > 1e-3 or hist_l1 > 2 * 0.001 * small[1].size):
+        raise AssertionError(f"{label}: float32 train step on the card disagrees with the "
+                             f"CPU: {res}")
+    return res
 
 
 def bits(t):
@@ -2915,6 +3003,346 @@ def production_phase(card) -> dict:
         return pool.apply(_production_child, (card,))
 
 
+# the architectures phase: the other families of create_model at resnet34 and
+# the U-Net at mobilenet_v2, 23 classes, 512 px, bf16, seeded weights
+ARCH_MODELS = (("FPN", "resnet34"), ("PSPNet", "resnet34"), ("Linknet", "resnet34"),
+               ("UnetPlusPlus", "resnet34"), ("DeepLabV3Plus", "resnet34"), ("PAN", "resnet34"),
+               ("MAnet", "resnet34"), ("Unet", "mobilenet_v2"))
+# train-mode BatchNorms of each model (one channel_sums and one
+# channel_dual_sums a train step each), counted from the module trees
+ARCH_BATCH_NORMS = {"FPN": 40, "PSPNet": 41, "Linknet": 51, "UnetPlusPlus": 56,
+                    "DeepLabV3Plus": 45, "PAN": 49, "MAnet": 45, "Unet": 62}
+ARCH_STEPS = 3
+ARCH_PROFILED = ("PSPNet", "DeepLabV3Plus", "Unet")   # device time by kind
+ARCH_SMALL_BATCH, ARCH_SMALL_TILE = 4, 128    # the float32 step on the card and the CPU
+# the resize kernels (the models' bilinear / antialiased / nearest-exact, and
+# the WEAK distortion's grid) apart from the augmentation's other kinds
+ARCH_PROFILE_CATEGORIES = ([("resize (upsample kernels)", ("upsample",))]
+                           + PROFILE_CATEGORIES)
+
+
+def arch_model(create_model, name, encoder, dtype, device):
+    """``create_model`` as a user calls it; the mobilenet U-Net serves with
+    ``fused_eval`` (the conv_bn_relu kernel, 2 launches a forward)."""
+    kw = {"fused_eval": True} if name == "Unet" else {}
+    return create_model(name, encoder, encoder_weights=None, classes=CLASSES, seed=SEED,
+                        dtype=dtype, device=device, **kw)
+
+
+def sums_path(sums_ops, shape) -> str:
+    """Which kernel of csrc/channel_sums.cu a bf16 (..., C) input takes."""
+    m, c = math.prod(shape[:-1]), shape[-1]
+    return "bulk" if sums_ops.plan(m, c, 2, 2, True, (1, 1, 1, 1), 132).cluster else "generic"
+
+
+def check_resize_on_card(architectures) -> dict:
+    """The models' resize on the card: every route keeps channels_last, and
+    whether the antialiased bilinear has a bf16 kernel with a backward there
+    (the port resizes a bf16 downsampling in float32 on every device, since
+    the CPU has none)."""
+    x = torch.randn(32, 512, 16, 16, device=PIPE_DEVICE).to(torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    for h, method in ((2, "linear"), (128, "bilinear"), (32, "nearest")):
+        y = architectures._upsample_to(x, h, h, method)
+        if y.dtype != torch.bfloat16 or not y.permute(0, 2, 3, 1).is_contiguous():
+            raise AssertionError(f"resize to {h} ({method}) gave {y.dtype}, not channels_last")
+    probe = x.detach().requires_grad_()
+    try:
+        y = F.interpolate(probe, size=(2, 2), mode="bilinear", align_corners=False, antialias=True)
+        y.float().sum().backward()
+        torch.cuda.synchronize()
+        aa = {"bf16_antialiased_forward_backward": True,
+              "output_channels_last": y.permute(0, 2, 3, 1).is_contiguous(),
+              "grad_channels_last": probe.grad.permute(0, 2, 3, 1).is_contiguous()}
+    except (RuntimeError, NotImplementedError) as e:
+        aa = {"bf16_antialiased_forward_backward": False, "error": str(e).splitlines()[0][:160]}
+    return {"routes_channels_last": True, **aa}
+
+
+def moved_check(label, before, model):
+    """Every BatchNorm buffer moved; a parameter left as it was must have had
+    an all-zero gradient (the PAB key's bias under the softmax can)."""
+    after = model.state_dict()
+    grads = {k: p.grad for k, p in model.named_parameters()}
+    stuck = [k for k, v in before.items() if torch.equal(v, after[k])]
+    unexplained = [k for k in stuck if k not in grads or grads[k] is None
+                   or bool(grads[k].any())]
+    if unexplained:
+        raise AssertionError(f"{label}: left unchanged by training: {unexplained[:5]}")
+    return stuck
+
+
+def arch_train(label, model, n_bn, batches, counters, gen, profiled):
+    """The census step on a copy, ``ARCH_STEPS`` counted steps, the bare step
+    (``measure_step``) and, for ``profiled``, the device time by kind."""
+    from uda_aerial_semantic_segmentation_research_tpu_torch.ops.batch_norm import BatchNorm
+    from uda_aerial_semantic_segmentation_research_tpu_torch.training.state import (
+        TrainState,
+        adam,
+    )
+    from uda_aerial_semantic_segmentation_research_tpu_torch.training.steps import (
+        make_supervised_train_step,
+    )
+
+    census = collections.Counter()
+
+    def record(mod, inp):
+        if not inp[0].permute(0, 2, 3, 1).is_contiguous():
+            raise AssertionError(f"{label}: a BatchNorm input is not channels_last")
+        census[tuple(inp[0].permute(0, 2, 3, 1).shape)] += 1
+
+    warm = copy.deepcopy(model)
+    for m in warm.modules():
+        if isinstance(m, BatchNorm):
+            m.register_forward_pre_hook(record)
+    make_supervised_train_step(warm, CLASSES)(TrainState(warm, adam(1e-4)),
+                                              torch.Generator(device=PIPE_DEVICE).manual_seed(SEED),
+                                              *batches[0])
+    torch.cuda.synchronize()
+    del warm
+    torch.cuda.empty_cache()
+    if sum(census.values()) != n_bn:
+        raise AssertionError(f"{label}: {sum(census.values())} BatchNorm inputs, {n_bn} modules")
+
+    state = TrainState(model, adam(1e-4))
+    train_step = make_supervised_train_step(model, CLASSES)        # WEAK, plain CE
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    per_step, losses = [], []
+    run = counted(train_step, counters, per_step)
+    for images, masks in batches:
+        state, metrics = run(state, gen, images, masks)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    expected = {"conv_bn_relu": 0, "channel_sums": n_bn, "channel_dual_sums": n_bn,
+                "dihedral_normalize": 1, "fused_cross_entropy": 0}
+    if any(c != expected for c in per_step):
+        raise AssertionError(f"{label}: launches per step {per_step}, expected {expected}")
+    losses = [x.item() for x in losses]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{label}: train losses {losses}")
+    stuck = moved_check(label, before, model)
+    del before
+    dev = [tuple(torch.from_numpy(a).to(PIPE_DEVICE) for a in b) for b in batches[:2]]
+    rec = measure_step(lambda b: train_step(state, gen, *b), dev, counters)
+    if rec["launches_per_step"] != expected:
+        raise AssertionError(f"{label}: bare-step launches {rec['launches_per_step']}")
+    out = {"batch": len(batches[0][0]), "batch_norm_inputs": {str(s): n for s, n in
+                                                              sorted(census.items())},
+           "losses": losses, "launches_per_step": expected,
+           "params_unchanged_zero_grad": stuck, **rec}
+    if profiled:
+        prof = profile_forward(lambda: train_step(state, gen, *dev[0]), reps=2,
+                               categories=ARCH_PROFILE_CATEGORIES)
+        out.update({"device_ms": prof.get("device_ms_per_call"),
+                    "busy_share": prof.get("busy_share"),
+                    "by_category_ms": prof.get("by_category_ms"),
+                    "by_category_launches": prof.get("by_category_launches"),
+                    "top_kernels": prof.get("top_kernels")})
+    del state, train_step, dev
+    return out, census
+
+
+def arch_train_model(counters, host_rng, n_bn) -> dict:
+    """``train_model`` with ``Config.MODEL_NAME = "DeepLabV3Plus"`` on the card
+    for 1 epoch over 80 in-memory 512 px tiles (phase 9's; 64 train tiles, B=32:
+    2 steps); its ``final_model.pth`` reloaded through ``from_jax_state_dict``
+    gives bit-identical logits."""
+    from uda_aerial_semantic_segmentation_research_tpu_torch.config import Config
+    from uda_aerial_semantic_segmentation_research_tpu_torch.data import dataset as dataset_mod
+    from uda_aerial_semantic_segmentation_research_tpu_torch.models import (
+        create_model,
+        from_jax_state_dict,
+    )
+    from uda_aerial_semantic_segmentation_research_tpu_torch.training import train as train_mod
+    from uda_aerial_semantic_segmentation_research_tpu_torch.training.steps import (
+        make_predict_step,
+    )
+    from uda_aerial_semantic_segmentation_research_tpu_torch.utils.checkpoint import (
+        load_checkpoint,
+    )
+
+    images = host_rng.integers(0, 256, (TRAINER_TILES, TILE, TILE, 3), dtype=np.uint8)
+    masks = host_rng.integers(0, CLASSES, (TRAINER_TILES, TILE, TILE)).astype(np.int32)
+    counts = [np.bincount(m.reshape(-1), minlength=CLASSES) for m in masks]
+    _, weights = dataset_mod.class_balance(
+        [{c: int(n[c]) for c in np.nonzero(n)[0]} for n in counts], [m.size for m in masks])
+
+    class InMemoryDroneDataset(InMemoryTiles):
+        """The tiles behind ``DroneDataset``'s constructor and sampler."""
+
+        def __init__(self, images_dir=None, masks_dir=None, balance_classes=True,
+                     image_size=None):
+            super().__init__(images, masks)
+
+        def get_sampler(self, indices=None):
+            w = weights[list(indices)] if indices is not None else weights
+            return dataset_mod.WeightedRandomSampler(w / w.sum(), num_samples=len(w))
+
+    settings = {"MODEL_NAME": "DeepLabV3Plus", "ENCODER_NAME": "resnet34",
+                "ENCODER_WEIGHTS": None, "IMAGE_SIZE": TILE, "BATCH_SIZE": TRAIN_BATCH,
+                "NUM_CLASSES": CLASSES, "DEVICE": PIPE_DEVICE}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, sub in (("DATA_DIR", "data"), ("LOGS_DIR", "logs"),
+                          ("CHECKPOINTS_DIR", "ckpt"), ("CHECKPOINT_DIR", "final")):
+            settings[name] = os.path.join(tmp, sub)
+        old = {k: getattr(Config, k) for k in settings}
+        real_dataset = dataset_mod.DroneDataset
+        try:
+            for k, v in settings.items():
+                setattr(Config, k, v)
+            dataset_mod.DroneDataset = InMemoryDroneDataset
+            torch.cuda.synchronize()
+            reset_counts(counters)
+            t0 = time.perf_counter()
+            model, _ = train_mod.train_model(epochs=1)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            run_counts = read_counts(counters)
+            path = os.path.join(settings["CHECKPOINT_DIR"], "final_model.pth")
+            final = load_checkpoint(path)
+            final_mb = os.path.getsize(path) / 2 ** 20
+        finally:
+            dataset_mod.DroneDataset = real_dataset
+            for k, v in old.items():
+                setattr(Config, k, v)
+    steps = -(-int(0.8 * TRAINER_TILES) // TRAIN_BATCH)
+    expected = {"conv_bn_relu": 0, "channel_sums": steps * n_bn,
+                "channel_dual_sums": steps * n_bn, "dihedral_normalize": steps,
+                "fused_cross_entropy": 0}
+    if run_counts != expected:
+        raise AssertionError(f"train_model launches {run_counts}, expected {expected}")
+    if type(model).__name__ != "DeepLabV3Plus":
+        raise AssertionError(f"train_model built {type(model).__name__}")
+    reloaded = create_model("DeepLabV3Plus", "resnet34", classes=CLASSES, seed=SEED + 1,
+                            dtype=torch.bfloat16, device=PIPE_DEVICE)
+    reloaded.load_state_dict(from_jax_state_dict(final["model_state_dict"]), strict=True)
+    probe = torch.from_numpy(images[-2:]).to(PIPE_DEVICE)
+    if not torch.equal(make_predict_step(model)(probe), make_predict_step(reloaded)(probe)):
+        raise AssertionError("final_model.pth does not reload bit for bit")
+    return {"model_name": "DeepLabV3Plus", "epochs": 1, "steps": steps, "launches": run_counts,
+            "wall_s": wall_s, "final_model_mb": final_mb, "reloaded_bit_for_bit": True}
+
+
+def drive_architectures(counters, card, host_rng) -> dict:
+    """Phase 14: the other families of ``create_model`` and the mobilenet_v2
+    U-Net on the card (see main)."""
+    import gc
+
+    from uda_aerial_semantic_segmentation_research_tpu_torch.inference.predict import (
+        predict_batch,
+    )
+    from uda_aerial_semantic_segmentation_research_tpu_torch.models import (
+        architectures,
+        create_model,
+    )
+    from uda_aerial_semantic_segmentation_research_tpu_torch.ops import (
+        augment,
+        channel_sums as sums_ops,
+    )
+    from uda_aerial_semantic_segmentation_research_tpu_torch.ops.batch_norm import BatchNorm
+    from uda_aerial_semantic_segmentation_research_tpu_torch.training.steps import (
+        make_predict_step,
+    )
+
+    # float32 convolutions as float32 (phase 7 sets the same in the parent)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    resize = check_resize_on_card(architectures)
+    print(f"phase 14 resize: {json.dumps(resize)}", flush=True)
+    serve = host_rng.integers(0, 256, (TRAIN_BATCH, TILE, TILE, 3), dtype=np.uint8)
+    batches = train_batches(host_rng, ARCH_STEPS, batch=TRAIN_BATCH, tile=TILE)
+    draws = f32_draws(augment, host_rng, ARCH_SMALL_BATCH, ARCH_SMALL_TILE)
+
+    models, census_all, run_counts = {}, collections.Counter(), collections.Counter()
+    for name, encoder in ARCH_MODELS:
+        label = f"{name}({encoder})"
+        model = arch_model(create_model, name, encoder, torch.bfloat16, PIPE_DEVICE)
+        n_bn = sum(isinstance(m, BatchNorm) for m in model.modules())
+        if n_bn != ARCH_BATCH_NORMS[name]:
+            raise AssertionError(f"{label}: {n_bn} BatchNorms, predicted {ARCH_BATCH_NORMS[name]}")
+
+        # serving: predict_batch, then the forward alone (CUDA events) and its peak
+        reset_counts(counters)
+        preds = predict_batch(model, serve, device=PIPE_DEVICE)
+        torch.cuda.synchronize()
+        serve_counts = read_counts(counters)
+        run_counts.update(serve_counts)
+        want = {k: 0 for k in serve_counts} | {"conv_bn_relu": 2 if name == "Unet" else 0}
+        if serve_counts != want:
+            raise AssertionError(f"{label}: serving launches {serve_counts}, expected {want}")
+        if (preds.shape != (TRAIN_BATCH, TILE, TILE) or preds.min() < 0
+                or preds.max() >= CLASSES):
+            raise AssertionError(f"{label}: predict_batch gave {preds.shape}")
+        step = make_predict_step(model)
+        x = torch.from_numpy(serve).to(PIPE_DEVICE)
+        logits = step(x)
+        if not torch.isfinite(logits).all() or tuple(logits.shape) != (TRAIN_BATCH, TILE, TILE,
+                                                                         CLASSES):
+            raise AssertionError(f"{label}: serving logits not finite or misshapen")
+        del logits
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        forward_ms = time_ms(lambda: step(x), reps=10)
+        serving = {"forward_ms": forward_ms, "tiles_per_s": TRAIN_BATCH / forward_ms * 1e3,
+                   "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                   "launches": serve_counts}
+        del step, x
+        torch.cuda.empty_cache()
+
+        # training at B=32 (the largest peak is ~13 GiB on an H100 80GB)
+        gen = torch.Generator(device=PIPE_DEVICE).manual_seed(SEED + 14)
+        reset_counts(counters)
+        training, census = arch_train(label, model, n_bn, batches, counters, gen,
+                                      name in ARCH_PROFILED)
+        run_counts.update(read_counts(counters))
+        census_all.update(census)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        head = "segmentation_head.weight" if name == "Unet" else "head.weight"
+        f32 = f32_step_card_vs_cpu(label, arch_model(create_model, name, encoder,
+                                                     torch.float32, "cpu"),
+                                   draws, counters, head)
+        models[label] = {"batch_norms": n_bn, "serving": serving, "training": training,
+                         "f32_step_gpu_vs_cpu": f32}
+        print(f"phase 14 model {label}: {json.dumps(models[label])}", flush=True)
+
+    # train_model with a non-U-Net Config.MODEL_NAME
+    entry = arch_train_model(counters, host_rng, ARCH_BATCH_NORMS["DeepLabV3Plus"])
+    run_counts.update(entry["launches"])
+    print(f"phase 14 train_model: {json.dumps(entry)}", flush=True)
+
+    # the sums kernels at every BatchNorm input shape no earlier phase covers
+    covered = set(BN_SHAPES) | set(DISC_BN_SHAPES) | set(UDA_UNET_BN_SHAPES) | set(
+        UDA_HEAD_BN_SHAPES)
+    gen = torch.Generator(device=PIPE_DEVICE).manual_seed(SEED + 15)
+    sums = []
+    for shape in sorted(s for s in census_all if s not in covered):
+        r = check_sums(sums_ops, gen, shape, torch.bfloat16, timed=True)
+        sums.append({k: r[k] for k in PER_SHAPE_KEYS}
+                    | {"path": sums_path(sums_ops, shape), "batch_norms": census_all[shape],
+                       "max_abs_err": r["max_abs_err"], "tolerance": r["tolerance"],
+                       "sums_library_is": "torch.var_mean",
+                       "sums_share_of_bound": r["sums_share_of_bound"],
+                       "dual_share_of_bound": r["dual_share_of_bound"]})
+    return {"models": models, "train_model": entry, "resize_on_card": resize,
+            "sums_new_shapes": sums, "launches": dict(run_counts), "card": card}
+
+
+def _architectures_child(card) -> dict:
+    return drive_architectures(kernel_counters(), card, np.random.default_rng(SEED + 14))
+
+
+def architectures_phase(card) -> dict:
+    """Phase 14 in a fresh process of its own (spawned, as phases 9-13)."""
+    import multiprocessing
+
+    torch.cuda.empty_cache()
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        return pool.apply(_architectures_child, (card,))
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--probe-batch", type=int, default=None,
@@ -3242,49 +3670,16 @@ def main(argv=None) -> int:
     ce_results = {dt: check_fused_ce(ce_ops, gen, dt) for dt in (torch.float32, torch.bfloat16)}
 
     # 7. one float32 train step on the card (kernels) against the same step on
-    #    a CPU copy of the model (plain versions), same flags.  Tolerances:
-    #    loss 1e-4 relative; hist may differ by 0.1% of the pixels (argmax of
-    #    near-ties); all gradients together 5e-2 relative in L2 and the head's
-    #    kernel 1e-3 of its largest entry -- through the whole network single
-    #    ReLU units flip under float32 noise (tests/test_torch_train_step.py).
-    #    The augmentation is WEAK in float32; a CUDA and a CPU generator draw
-    #    different numbers, so the draws are made once on the host and given
-    #    to both (these seeded draws blur and HSV-shift the first image).
-    #    Every stage on both devices is held in ``check_augment_card_vs_cpu``.
-    small = train_batches(host_rng, 1, batch=2, tile=256)[0]
-    cfg32 = dataclasses.replace(augment.WEAK, compute_dtype="float32")
-    host_gen = torch.Generator().manual_seed(SEED)
-    abc = augment._sample_dihedral(host_gen, 2, cfg32)
-    params = augment.sample_params(host_gen, small[0].shape, cfg32, has_masks=True)
-    if not any(d.do.any() for d in (*params.warp, *params.photometric) if d is not None):
-        raise AssertionError("the f32 step's draws select no augmentation stage")
-    runs = {}
-    for device in ("cuda", "cpu"):
-        m32 = create_unet("resnet34", classes=CLASSES, seed=SEED, dtype=torch.float32,
-                          device=device)
-        s32 = TrainState(m32, adam(1e-4))
-        reset_counts(counters)
-        _, met = make_supervised_train_step(m32, CLASSES, aug_cfg=cfg32, fused_ce=True)(
-            s32, None, *small, abc=abc, params=params)
-        if device == "cuda":
-            torch.cuda.synchronize()
-        if (sum(read_counts(counters).values()) > 0) != (device == "cuda"):
-            raise AssertionError(f"kernel launches on {device}: {read_counts(counters)}")
-        runs[device] = (met["loss"].item(), met["hist"].cpu(),
-                        {k: p.grad.detach().cpu() for k, p in m32.named_parameters()})
-        del m32, s32
-    (loss_gpu, hist_gpu, g_gpu), (loss_cpu, hist_cpu, g_cpu) = runs["cuda"], runs["cpu"]
-    flat = lambda g: torch.cat([g[k].reshape(-1) for k in sorted(g)])
-    grad_rel_l2 = ((flat(g_gpu) - flat(g_cpu)).norm() / flat(g_cpu).norm()).item()
-    head = "segmentation_head.weight"
-    head_err = ((g_gpu[head] - g_cpu[head]).abs().max() / g_cpu[head].abs().max()).item()
-    hist_l1 = (hist_gpu - hist_cpu).abs().sum().item()
-    print(json.dumps({"f32_step_gpu_vs_cpu": {
-        "loss_gpu": loss_gpu, "loss_cpu": loss_cpu, "hist_l1_diff": hist_l1,
-        "grad_rel_l2": grad_rel_l2, "head_kernel_grad_max_rel_err": head_err}}), flush=True)
-    if (abs(loss_gpu - loss_cpu) > 1e-4 * abs(loss_cpu) or grad_rel_l2 > 5e-2
-            or head_err > 1e-3 or hist_l1 > 2 * 0.001 * 2 * 256 * 256):
-        raise AssertionError("float32 train step on the card disagrees with the CPU")
+    #    a CPU copy of the model (plain versions), WEAK with host draws
+    #    (``f32_step_card_vs_cpu``; these seeded draws blur and HSV-shift the
+    #    first image).  Every stage on both devices is held in
+    #    ``check_augment_card_vs_cpu``.
+    f32_step = f32_step_card_vs_cpu(
+        "resnet34 U-Net", create_unet("resnet34", classes=CLASSES, seed=SEED,
+                                      dtype=torch.float32, device="cpu"),
+        f32_draws(augment, host_rng, 2, 256), counters, "segmentation_head.weight",
+        fused_ce=True)
+    print(json.dumps({"f32_step_gpu_vs_cpu": f32_step}), flush=True)
 
     # 9. the trainer: SegmentationTrainer.train, 2 epochs over an in-memory
     #    dataset (80 tiles, split 64 / 16, weighted sampler, B=32), in a
@@ -3323,10 +3718,18 @@ def main(argv=None) -> int:
     production_counts = production_result["launches"]
     print(json.dumps({"production": production_result}), flush=True)
 
+    # 14. the other families of create_model and the mobilenet_v2 U-Net,
+    #     in a process of its own
+    t0 = time.perf_counter()
+    architectures_result = architectures_phase(card)
+    architectures_result["process_wall_s"] = time.perf_counter() - t0   # spawn to result
+    architectures_counts = architectures_result["launches"]
+    print(json.dumps({"architectures": architectures_result}), flush=True)
+
     # 8. results
     total = {k: serving_counts[k] + train_counts[k] + eval_counts[k] + trainer_counts[k]
              + pipeline_counts[k] + multiphase_counts[k] + system_counts[k]
-             + production_counts[k] for k in counters}
+             + production_counts[k] + architectures_counts.get(k, 0) for k in counters}
     if min(total.values()) == 0:
         raise AssertionError(f"a kernel never launched on the main paths: {total}")
     src = f"{PORT}/csrc"
@@ -3360,9 +3763,11 @@ def main(argv=None) -> int:
         "device_kernels_per_call": sums_launch_checks["device_kernels_per_call"],
         "host_us_per_call": sums_launch_checks["host_us_per_call"],
         "max_abs_err": max(r["max_abs_err"] for r in
-                           sums_results + disc_sums_results + list(sums_by_shape.values())),
+                           sums_results + disc_sums_results + list(sums_by_shape.values())
+                           + architectures_result["sums_new_shapes"]),
         "max_rel_err": max(r["max_rel_err"] for r in
-                           sums_results + disc_sums_results + list(sums_by_shape.values())),
+                           sums_results + disc_sums_results + list(sums_by_shape.values())
+                           + architectures_result["sums_new_shapes"]),
         # 20 launches per event pair over rotating cold copies of the inputs
         "ms": per_step("sums_ms") + per_step("dual_ms"),
         "forward_ms": per_step("sums_ms"), "backward_ms": per_step("dual_ms"),
@@ -3400,6 +3805,9 @@ def main(argv=None) -> int:
                                for r in resnet50_sums_results],
         "feature_discriminator_per_shape": [{k: r[k] for k in PER_SHAPE_KEYS}
                                             for r in head_sums_results],
+        # phase 14: the BatchNorm inputs of the other families and the
+        # mobilenet_v2 U-Net that no earlier phase has, bulk and generic path
+        "architectures_per_shape": architectures_result["sums_new_shapes"],
     }, {
         "name": "dihedral_normalize", "route": "cuda",
         "source": f"{src}/dihedral_normalize.cu",
@@ -3430,7 +3838,8 @@ def main(argv=None) -> int:
     print(f"chip_smoke wall time: {time.perf_counter() - t_script:.1f} s (phase 11 with "
           f"its process: {multiphase_result['process_wall_s']:.1f} s, phase 12: "
           f"{system_result['process_wall_s']:.1f} s, phase 13: "
-          f"{production_result['process_wall_s']:.1f} s)", flush=True)
+          f"{production_result['process_wall_s']:.1f} s, phase 14: "
+          f"{architectures_result['process_wall_s']:.1f} s)", flush=True)
     print(json.dumps({"kernels": entries}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -50,10 +50,15 @@ def random_variables(module, sample, seed):
     means small normals, variances in [0.5, 1.5).
     """
     shapes = jax.eval_shape(module.init, jax.random.key(0), sample)
+    return random_arrays({k: s.shape for k, s in flatten_dict(shapes, sep="/").items()}, seed)
+
+
+def random_arrays(shapes, seed):
+    """``random_variables``'s values for a flat ``{key: shape}`` tree."""
     rng = np.random.default_rng(seed)
     flat = {}
-    for key, s in flatten_dict(shapes, sep="/").items():
-        leaf, shape = key.rsplit("/", 1)[-1], s.shape
+    for key, shape in shapes.items():
+        leaf = key.rsplit("/", 1)[-1]
         if leaf == "kernel":
             v = rng.normal(size=shape) * math.sqrt(1.0 / math.prod(shape[:-1]))
         elif leaf == "scale":

@@ -403,8 +403,17 @@ def test_create_model_by_name():
     reference = create_unet("resnet18", classes=CLASSES, device="cpu", dtype=torch.float32)
     for k, v in reference.state_dict().items():
         torch.testing.assert_close(model.state_dict()[k], v, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="A.13"):
-        create_model("FPN", "resnet18", device="cpu")
+    # every name of the JAX registry builds (JAX models/__init__.py:69-72), here
+    # on the small mobilenet_v2 encoder, and runs; the trees and values are
+    # held against JAX in tests/test_torch_architectures*.py
+    for name in ("Unet", "UnetPlusPlus", "FPN", "PSPNet", "Linknet", "DeepLabV3Plus", "PAN",
+                 "MAnet"):
+        model = create_model(name, "mobilenet_v2", classes=CLASSES, device="cpu",
+                             dtype=torch.float32)
+        assert type(model).__name__ == name and not model.training
+        with torch.no_grad():
+            logits = model(torch.zeros(1, 64, 64, 3))
+        assert logits.shape == (1, 64, 64, CLASSES) and torch.isfinite(logits).all()
     with pytest.raises(ValueError, match="Unknown model"):
         create_model("Transformer", "resnet18", device="cpu")
 

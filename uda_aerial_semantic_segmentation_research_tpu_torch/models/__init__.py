@@ -5,7 +5,8 @@
 JAX package's initializers (lecun-normal convs, BatchNorm ones/zeros,
 zero-initialized last norm of each residual block), and returns it in
 eval mode on the device.  ``create_model`` selects the architecture by
-name, as the JAX package's does; the port has the U-Net so far.
+name from the JAX package's registry (``Unet`` and the families of
+``models.architectures``), on any encoder of ``ENCODERS``.
 ``create_discriminator`` builds the image-level domain discriminator the
 same way, and ``create_uda_model`` the GRL stack's ``UDASegmentationModel``
 (resnet50 by default, as in the JAX package).
@@ -19,6 +20,7 @@ from typing import Optional
 import torch
 
 from uda_aerial_semantic_segmentation_research_tpu_torch.config import Config
+from uda_aerial_semantic_segmentation_research_tpu_torch.models import architectures
 from uda_aerial_semantic_segmentation_research_tpu_torch.models.discriminator import (
     DomainDiscriminator,
 )
@@ -60,7 +62,7 @@ def init_weights_(model: torch.nn.Module, generator: torch.Generator) -> None:
     for m in model.modules():
         if isinstance(m, (Conv2d, torch.nn.Linear)):
             fan_in = (m.in_features if isinstance(m, torch.nn.Linear)
-                      else m.in_channels * m.kernel_size[0] * m.kernel_size[1])
+                      else m.weight[0].numel())       # a group's inputs x kh x kw
             std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
             torch.nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std,
                                         generator=generator)
@@ -131,34 +133,49 @@ def create_uda_model(encoder_name: str = "resnet50", classes: Optional[int] = No
     return model.to(dev, memory_format=torch.channels_last).eval()
 
 
-# architectures of the JAX package's create_model that the port lacks yet
-_NOT_PORTED = ("UnetPlusPlus", "FPN", "PSPNet", "Linknet", "DeepLabV3Plus", "PAN", "MAnet")
+# the JAX package's create_model registry, by name
+ARCHITECTURES = {"FPN": architectures.FPN, "PSPNet": architectures.PSPNet,
+                 "Linknet": architectures.Linknet,
+                 "DeepLabV3Plus": architectures.DeepLabV3Plus,
+                 "UnetPlusPlus": architectures.UnetPlusPlus, "PAN": architectures.PAN,
+                 "MAnet": architectures.MAnet}
 
 
 def create_model(model_name: Optional[str] = None, encoder_name: Optional[str] = None,
                  encoder_weights: Optional[str] = None, in_channels: Optional[int] = None,
                  classes: Optional[int] = None, image_size: Optional[int] = None,
                  seed: int = 0, dtype: Optional[torch.dtype] = None, device=None,
-                 **arch_kwargs) -> Unet:
+                 **arch_kwargs) -> torch.nn.Module:
     """By-name architecture factory (defaults from ``Config``), with the JAX
-    ``create_model``'s arguments in their positions.  ``"Unet"`` builds on
-    ``create_unet``, which loads the local converted encoder checkpoint for
-    ``encoder_weights="imagenet"`` (``models.pretrained``); ``image_size`` is
-    accepted for the JAX signature (the port's initialization needs no sample
-    input); ``arch_kwargs`` (``remat``,
-    ``logits_dtype``, ``fused_eval``) pass through to the ``Unet``."""
+    ``create_model``'s arguments in their positions and its registry:
+    ``Unet``, ``UnetPlusPlus``, ``FPN``, ``PSPNet``, ``Linknet``,
+    ``DeepLabV3Plus``, ``PAN``, ``MAnet``.  A seeded model in eval mode on
+    ``device`` (default ``cuda``); ``encoder_weights="imagenet"`` loads the
+    local converted encoder checkpoint (``models.pretrained``); ``image_size``
+    is accepted for the JAX signature (the port's initialization needs no
+    sample input).  ``arch_kwargs`` go to the architecture's constructor:
+    ``remat``, ``logits_dtype``, ``fused_eval`` to the ``Unet`` (through
+    ``create_unet``), ``bins``, ``atrous_rates``, ``pyramid_channels``, ... to
+    the others."""
     model_name = model_name or Config.MODEL_NAME
     encoder_name = encoder_name or Config.ENCODER_NAME
-    if model_name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"architecture {model_name!r} is not ported yet (ROADMAP A.13); "
-            f"the port has 'Unet'")
-    if model_name != "Unet":
+    if model_name == "Unet":
+        return create_unet(encoder_name, encoder_weights, in_channels=in_channels,
+                           classes=classes, image_size=image_size, seed=seed, dtype=dtype,
+                           device=device, **arch_kwargs)
+    if model_name not in ARCHITECTURES:
         raise ValueError(f"Unknown model '{model_name}'; "
-                         f"available: {sorted(_NOT_PORTED + ('Unet',))}")
-    return create_unet(encoder_name, encoder_weights, in_channels=in_channels,
-                       classes=classes, image_size=image_size, seed=seed, dtype=dtype,
-                       device=device, **arch_kwargs)
+                         f"available: {sorted([*ARCHITECTURES, 'Unet'])}")
+    dev = resolve_device(device)
+    model = ARCHITECTURES[model_name](encoder_name=encoder_name,
+                                      classes=classes or Config.NUM_CLASSES,
+                                      in_channels=in_channels or Config.IN_CHANNELS,
+                                      dtype=dtype or Config.compute_dtype(), **arch_kwargs)
+    init_weights_(model, torch.Generator().manual_seed(seed))
+    model = model.to(dev, memory_format=torch.channels_last).eval()
+    if encoder_weights == "imagenet":
+        load_imagenet_encoder(model, encoder_name)
+    return model
 
 
 __all__ = ["ENCODERS", "DomainAdaptationModel", "DomainDiscriminator",

@@ -1,0 +1,414 @@
+"""The other segmentation families of ``create_model`` (FPN / PSPNet /
+Linknet / UnetPlusPlus / DeepLabV3+ / PAN / MAnet), sharing the encoders.
+
+Counterpart of the JAX package's ``models/architectures.py``, the
+by-name choice the reference makes with ``getattr(smp, model_name)``.
+Conventions, as the port's ``Unet``: NHWC input, float32 NHWC logits at
+the input's resolution, NCHW tensors in channels_last memory inside,
+parameters in float32, compute in ``dtype``.  ``encode`` returns the
+encoder's 6-level pyramid (NCHW, as ``Unet.encode``).  Module names are
+the flax names (``lateral5``, ``seg0_conv`` / ``seg0_norm``,
+``block0.reduce_conv``, ``pab.q``, ``mfab0.se_reduce``, ...), so the
+weight bridge (``models.convert``) maps the JAX tree with no rule of its
+own.
+
+The JAX package's documented approximations of smp are kept as they are:
+PSPNet pools at (1, 2, 4, 8) bins by resize, FPN's blocks use BatchNorm,
+PAN runs on the /32 pyramid.
+
+Resizing (``_upsample_to``, the JAX ``jax.image.resize``): ``"nearest"``
+is ``nearest-exact``; ``"linear"`` / ``"bilinear"`` is the half-pixel
+bilinear, antialiased where it downsamples (as ``jax.image.resize``,
+which leaves an upsampling as it is).  The antialiased resize has no
+bfloat16 kernel on the CPU, so a downsampling of a non-float32 tensor
+runs in float32 and is cast back: one rounding, where the JAX bf16
+resize rounds its weights and each of its two contractions.
+
+Every BatchNorm input stays channels_last: concatenations go along the
+NHWC view's last axis (``_cat``), which is what ``jnp.concatenate`` does.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from uda_aerial_semantic_segmentation_research_tpu_torch.models.resnet import (
+    Conv2d,
+    build_encoder,
+    encoder_out_channels,
+)
+from uda_aerial_semantic_segmentation_research_tpu_torch.ops.batch_norm import BatchNorm
+
+
+def _upsample_to(x, h: int, w: int, method: str = "nearest"):
+    """``x`` (NCHW) resized to ``(h, w)`` as ``jax.image.resize`` does it."""
+    if x.shape[2] == h and x.shape[3] == w:
+        return x
+    if method == "nearest":
+        return F.interpolate(x, size=(h, w), mode="nearest-exact")
+    if method not in ("linear", "bilinear"):
+        raise ValueError(f"unknown resize method {method!r}")
+    if h >= x.shape[2] and w >= x.shape[3]:
+        return F.interpolate(x, size=(h, w), mode="bilinear", align_corners=False)
+    y = F.interpolate(x.float(), size=(h, w), mode="bilinear", align_corners=False,
+                      antialias=True)
+    return y.to(x.dtype)
+
+
+def _cat(tensors):
+    """Concatenation along channels of NCHW tensors, made on their NHWC views,
+    so that the result is channels_last whatever the inputs' layouts."""
+    return torch.cat([t.permute(0, 2, 3, 1) for t in tensors], dim=-1).permute(0, 3, 1, 2)
+
+
+def _add_conv_bn_relu(parent: nn.Module, name: str, cin: int, cout: int, k: int,
+                      dtype: torch.dtype, dilation: int = 1) -> None:
+    """``{name}_conv`` (no bias, SAME padding) and ``{name}_norm`` on ``parent``."""
+    parent.add_module(f"{name}_conv", Conv2d(cin, cout, k, padding=dilation * (k // 2),
+                                             dilation=dilation, bias=False))
+    parent.add_module(f"{name}_norm", BatchNorm(cout, dtype=dtype))
+
+
+def _conv_bn_relu(parent: nn.Module, name: str, x):
+    return torch.relu(getattr(parent, f"{name}_norm")(getattr(parent, f"{name}_conv")(x)))
+
+
+def _head(cin: int, classes: int, k: int = 1) -> Conv2d:
+    return Conv2d(cin, classes, k, padding=k // 2, bias=True)
+
+
+def _nearest2x(x):
+    """Each pixel repeated 2x2 (the JAX broadcast-and-reshape)."""
+    return F.interpolate(x, scale_factor=2, mode="nearest")
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` with float32 parameters cast to the input's dtype."""
+
+    def forward(self, x):
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
+class _SegBase(nn.Module):
+    """Encoder + the float32 NHWC logits contract."""
+
+    def __init__(self, encoder_name: str = "resnet34", classes: int = 23,
+                 in_channels: int = 3, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.classes = classes
+        self.dtype = dtype
+        self.encoder = build_encoder(encoder_name, in_channels, dtype)
+        self.channels = encoder_out_channels(encoder_name)
+
+    def encode(self, x):
+        """(B, H, W, in_channels) -> the pyramid ``[identity, /2, /4, /8, /16,
+        /32]`` in the internal NCHW form (channels_last memory)."""
+        return self.encoder.features(x.permute(0, 3, 1, 2))
+
+    def _logits(self, y, h: int, w: int):
+        """Head output -> (B, h, w, classes) float32, upsampled in ``dtype``."""
+        return _upsample_to(y, h, w, "bilinear").float().permute(0, 2, 3, 1).contiguous()
+
+
+class FPN(_SegBase):
+    """Feature Pyramid Network decoder (smp.FPN analogue): 1x1 laterals on
+    C2..C5, top-down nearest-add merge, per-level conv blocks at 1/4 scale,
+    summed, head, upsample x4."""
+
+    def __init__(self, encoder_name: str = "resnet34", classes: int = 23,
+                 in_channels: int = 3, dtype: torch.dtype = torch.bfloat16,
+                 pyramid_channels: int = 256, segmentation_channels: int = 128):
+        super().__init__(encoder_name, classes, in_channels, dtype)
+        for level in (5, 4, 3, 2):
+            self.add_module(f"lateral{level}",
+                            Conv2d(self.channels[level], pyramid_channels, 1, bias=True))
+        for i in range(4):
+            _add_conv_bn_relu(self, f"seg{i}", pyramid_channels, segmentation_channels, 3,
+                              dtype)
+        self.head = _head(segmentation_channels, classes)
+
+    def forward(self, x):
+        h, w = x.shape[1], x.shape[2]
+        c2, c3, c4, c5 = self.encode(x)[2:6]
+        p5 = self.lateral5(c5)
+        p4 = self.lateral4(c4) + _upsample_to(p5, *c4.shape[2:])
+        p3 = self.lateral3(c3) + _upsample_to(p4, *c3.shape[2:])
+        p2 = self.lateral2(c2) + _upsample_to(p3, *c2.shape[2:])
+        merged = None
+        for i, p in enumerate((p5, p4, p3, p2)):
+            s = _upsample_to(_conv_bn_relu(self, f"seg{i}", p), *c2.shape[2:])
+            merged = s if merged is None else merged + s
+        return self._logits(self.head(merged), h, w)
+
+
+class PSPNet(_SegBase):
+    """Pyramid Scene Parsing network (smp.PSPNet analogue): the bottleneck
+    resized (antialiased bilinear) to each of ``bins`` -> 1x1 conv blocks ->
+    upsampled back -> concat -> 3x3 conv block -> head -> upsample."""
+
+    def __init__(self, encoder_name: str = "resnet34", classes: int = 23,
+                 in_channels: int = 3, dtype: torch.dtype = torch.bfloat16,
+                 psp_channels: int = 512, bins: Sequence[int] = (1, 2, 4, 8)):
+        super().__init__(encoder_name, classes, in_channels, dtype)
+        self.bins = tuple(bins)
+        c5, branch = self.channels[5], psp_channels // len(self.bins)
+        for i in range(len(self.bins)):
+            _add_conv_bn_relu(self, f"psp{i}", c5, branch, 1, dtype)
+        _add_conv_bn_relu(self, "bottleneck", c5 + branch * len(self.bins), psp_channels, 3,
+                          dtype)
+        self.head = _head(psp_channels, classes)
+
+    def forward(self, x):
+        h, w = x.shape[1], x.shape[2]
+        c5 = self.encode(x)[-1]
+        fh, fw = c5.shape[2], c5.shape[3]
+        branches = [c5]
+        for i, b in enumerate(self.bins):
+            pooled = _conv_bn_relu(self, f"psp{i}", _upsample_to(c5, b, b, "linear"))
+            branches.append(_upsample_to(pooled, fh, fw, "bilinear"))
+        y = _conv_bn_relu(self, "bottleneck", _cat(branches))
+        return self._logits(self.head(y), h, w)
+
+
+class LinknetDecoderBlock(nn.Module):
+    """1x1 reduce to ``max(cin // 4, 16)`` -> nearest 2x -> 3x3 -> 1x1 expand,
+    each a conv block."""
+
+    def __init__(self, cin: int, out_channels: int, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        mid = max(cin // 4, 16)
+        _add_conv_bn_relu(self, "reduce", cin, mid, 1, dtype)
+        _add_conv_bn_relu(self, "up", mid, mid, 3, dtype)
+        _add_conv_bn_relu(self, "expand", mid, out_channels, 1, dtype)
+
+    def forward(self, x):
+        y = _nearest2x(_conv_bn_relu(self, "reduce", x))
+        return _conv_bn_relu(self, "expand", _conv_bn_relu(self, "up", y))
+
+
+class Linknet(_SegBase):
+    """Linknet (smp.Linknet analogue): decoder blocks ADD the encoder skips."""
+
+    def __init__(self, encoder_name: str = "resnet34", classes: int = 23,
+                 in_channels: int = 3, dtype: torch.dtype = torch.bfloat16):
+        super().__init__(encoder_name, classes, in_channels, dtype)
+        cin = self.channels[5]
+        for i, skip in enumerate((4, 3, 2, 1)):                # /16 /8 /4 /2
+            self.add_module(f"block{i}", LinknetDecoderBlock(cin, self.channels[skip], dtype))
+            cin = self.channels[skip]
+        self.block4 = LinknetDecoderBlock(cin, 32, dtype)      # /1
+        self.head = _head(32, classes, 3)
+
+    def forward(self, x):
+        h, w = x.shape[1], x.shape[2]
+        feats = self.encode(x)
+        y = feats[5]
+        for i, skip in enumerate(feats[4:0:-1]):
+            y = getattr(self, f"block{i}")(y) + skip
+        return self._logits(self.head(self.block4(y)), h, w)
+
+
+class UnetPlusPlus(_SegBase):
+    """UNet++ (smp.UnetPlusPlus analogue): node ``x{i}_{j}`` (row i = level
+    /2^(i+1), column j = depth) convolves the concat of the row's earlier
+    nodes with the upsampled ``x{i+1}_{j-1}``; the head reads ``x0_4`` at /2."""
+
+    ROWS = 5
+
+    def __init__(self, encoder_name: str = "resnet34", classes: int = 23,
+                 in_channels: int = 3, dtype: torch.dtype = torch.bfloat16,
+                 row_channels: Sequence[int] = (32, 64, 128, 256)):
+        super().__init__(encoder_name, classes, in_channels, dtype)
+        self.row_channels = tuple(row_channels)
+        for j in range(1, self.ROWS):
+            for i in range(self.ROWS - j):
+                cin = sum(self._width(i, k) for k in range(j)) + self._width(i + 1, j - 1)
+                ch = self._width(i, j)
+                _add_conv_bn_relu(self, f"x{i}_{j}a", cin, ch, 3, dtype)
+                _add_conv_bn_relu(self, f"x{i}_{j}b", ch, ch, 3, dtype)
+        self.head = _head(self.row_channels[0], classes)
+
+    def _width(self, i: int, j: int) -> int:
+        if j == 0:
+            return self.channels[i + 1]
+        return self.row_channels[min(i, len(self.row_channels) - 1)]
+
+    def forward(self, x):
+        h, w = x.shape[1], x.shape[2]
+        feats = self.encode(x)
+        nodes = {(i, 0): feats[i + 1] for i in range(self.ROWS)}
+        for j in range(1, self.ROWS):
+            for i in range(self.ROWS - j):
+                up = _upsample_to(nodes[(i + 1, j - 1)], *nodes[(i, 0)].shape[2:])
+                y = _cat([nodes[(i, k)] for k in range(j)] + [up])
+                y = _conv_bn_relu(self, f"x{i}_{j}a", y)
+                nodes[(i, j)] = _conv_bn_relu(self, f"x{i}_{j}b", y)
+        return self._logits(self.head(nodes[(0, self.ROWS - 1)]), h, w)
+
+
+class DeepLabV3Plus(_SegBase):
+    """DeepLabV3+ (smp.DeepLabV3Plus analogue): ASPP over the /32 bottleneck
+    (1x1, dilated 3x3 at ``atrous_rates``, image pooling) -> 1x1 project ->
+    upsample to /4 -> concat the 48-channel low level -> two 3x3 -> head."""
+
+    def __init__(self, encoder_name: str = "resnet34", classes: int = 23,
+                 in_channels: int = 3, dtype: torch.dtype = torch.bfloat16,
+                 aspp_channels: int = 256, atrous_rates: Sequence[int] = (2, 4, 6)):
+        super().__init__(encoder_name, classes, in_channels, dtype)
+        self.atrous_rates = tuple(atrous_rates)
+        c5, a = self.channels[5], aspp_channels
+        _add_conv_bn_relu(self, "aspp_1x1", c5, a, 1, dtype)
+        for r in self.atrous_rates:
+            _add_conv_bn_relu(self, f"aspp_r{r}", c5, a, 3, dtype, dilation=r)
+        _add_conv_bn_relu(self, "aspp_pool", c5, a, 1, dtype)
+        _add_conv_bn_relu(self, "aspp_project", a * (len(self.atrous_rates) + 2), a, 1, dtype)
+        _add_conv_bn_relu(self, "low_project", self.channels[2], 48, 1, dtype)
+        _add_conv_bn_relu(self, "refine1", a + 48, a, 3, dtype)
+        _add_conv_bn_relu(self, "refine2", a, a, 3, dtype)
+        self.head = _head(a, classes)
+
+    def forward(self, x):
+        h, w = x.shape[1], x.shape[2]
+        feats = self.encode(x)
+        low, c5 = feats[2], feats[5]
+        branches = [_conv_bn_relu(self, "aspp_1x1", c5)]
+        branches += [_conv_bn_relu(self, f"aspp_r{r}", c5) for r in self.atrous_rates]
+        pooled = _conv_bn_relu(self, "aspp_pool", c5.mean((2, 3), keepdim=True))
+        branches.append(pooled.expand(-1, -1, c5.shape[2], c5.shape[3]))
+        y = _conv_bn_relu(self, "aspp_project", _cat(branches))
+        y = _upsample_to(y, low.shape[2], low.shape[3], "bilinear")
+        y = _cat([y, _conv_bn_relu(self, "low_project", low)])
+        y = _conv_bn_relu(self, "refine2", _conv_bn_relu(self, "refine1", y))
+        return self._logits(self.head(y), h, w)
+
+
+class PAN(_SegBase):
+    """Pyramid Attention Network (smp.PAN analogue) on the /32 pyramid: FPA
+    (a 1x1 main branch modulated by a 7/5/3 downsampling conv pyramid, plus
+    a global pooling branch), then three GAU blocks merging C4/C3/C2 up to
+    /4; head, upsample.  The pyramid is cut short where the grid is too small
+    to halve (``min(H, W) < 2``), as in JAX; its modules exist at every input
+    size (the JAX tree has those its init size reached)."""
+
+    FPA = ((7, "d1"), (5, "d2"), (3, "d3"))
+
+    def __init__(self, encoder_name: str = "resnet34", classes: int = 23,
+                 in_channels: int = 3, dtype: torch.dtype = torch.bfloat16,
+                 decoder_channels: int = 32):
+        super().__init__(encoder_name, classes, in_channels, dtype)
+        ch, c5 = decoder_channels, self.channels[5]
+        self.fpa_pool = Conv2d(c5, ch, 1, bias=True)
+        _add_conv_bn_relu(self, "fpa_mid", c5, ch, 1, dtype)
+        for n, (kern, lname) in enumerate(self.FPA, 1):
+            _add_conv_bn_relu(self, f"fpa_{lname}", c5 if n == 1 else ch, ch, kern, dtype)
+            _add_conv_bn_relu(self, f"fpa_u{n}", ch, ch, kern, dtype)
+        for i, level in enumerate((4, 3, 2)):
+            _add_conv_bn_relu(self, f"gau{i}_low", self.channels[level], ch, 3, dtype)
+            self.add_module(f"gau{i}_att", Conv2d(ch, ch, 1, bias=False))
+            self.add_module(f"gau{i}_att_norm", BatchNorm(ch, dtype=dtype))
+        self.head = _head(ch, classes)
+
+    def forward(self, x):
+        h, w = x.shape[1], x.shape[2]
+        feats = self.encode(x)
+        c2, c3, c4, c5 = feats[2:6]
+        glob = self.fpa_pool(c5.mean((2, 3), keepdim=True))
+        mid = _conv_bn_relu(self, "fpa_mid", c5)
+        downs, cur = [], c5
+        for _, lname in self.FPA:
+            if min(cur.shape[2], cur.shape[3]) < 2:
+                break
+            cur = _conv_bn_relu(self, f"fpa_{lname}", F.avg_pool2d(cur, 2, 2))
+            downs.append(cur)
+        u = None
+        for n in range(len(downs), 0, -1):                    # fpa_u{n} on d{n}
+            s = _conv_bn_relu(self, f"fpa_u{n}", downs[n - 1])
+            u = s if u is None else s + u
+            target = downs[n - 2] if n >= 2 else c5
+            u = _upsample_to(u, target.shape[2], target.shape[3], "bilinear")
+        y = mid * u + glob if downs else mid + glob
+        for i, skip in enumerate((c4, c3, c2)):
+            low = _conv_bn_relu(self, f"gau{i}_low", skip)
+            att = getattr(self, f"gau{i}_att")(y.mean((2, 3), keepdim=True))
+            att = torch.sigmoid(getattr(self, f"gau{i}_att_norm")(att))
+            y = _upsample_to(y, skip.shape[2], skip.shape[3], "bilinear") + low * att
+        return self._logits(self.head(y), h, w)
+
+
+class _PAB(nn.Module):
+    """Position-wise attention over the /32 bottleneck (MAnet):
+    ``x + softmax(q k^T / sqrt(C/4)) v``, the scores and softmax in float32,
+    cast to ``dtype`` before the product with ``v``."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        mid = channels // 4
+        self.q = Conv2d(channels, mid, 1, bias=True)
+        self.k = Conv2d(channels, mid, 1, bias=True)
+        self.v = Conv2d(channels, channels, 1, bias=True)
+
+    def forward(self, x):
+        b, c, fh, fw = x.shape
+
+        def flat(t):                     # NCHW (channels_last) -> (B, H*W, C), a view
+            return t.permute(0, 2, 3, 1).reshape(b, fh * fw, t.shape[1])
+
+        q, k, v = flat(self.q(x)), flat(self.k(x)), flat(self.v(x))
+        scores = torch.bmm(q.float(), k.float().transpose(1, 2)) / math.sqrt(q.shape[-1])
+        att = torch.softmax(scores, dim=-1).to(x.dtype)
+        y = torch.bmm(att, v).reshape(b, fh, fw, c).permute(0, 3, 1, 2)
+        return x + y
+
+
+class _MFAB(nn.Module):
+    """Multi-scale fusion attention block (a MAnet decoder stage): concat
+    (nearest-upsampled deep, skip) -> two 3x3 conv blocks -> squeeze-excite
+    channel attention (``max(C // reduction, 4)`` wide) -> scale."""
+
+    def __init__(self, cin: int, cskip: int, out_channels: int,
+                 dtype: torch.dtype = torch.bfloat16, reduction: int = 16):
+        super().__init__()
+        _add_conv_bn_relu(self, "fuse1", cin + cskip, out_channels, 3, dtype)
+        _add_conv_bn_relu(self, "fuse2", out_channels, out_channels, 3, dtype)
+        squeeze = max(out_channels // reduction, 4)
+        self.se_reduce = Linear(out_channels, squeeze)
+        self.se_expand = Linear(squeeze, out_channels)
+
+    def forward(self, deep, skip):
+        y = _cat([_upsample_to(deep, skip.shape[2], skip.shape[3]), skip])
+        y = _conv_bn_relu(self, "fuse2", _conv_bn_relu(self, "fuse1", y))
+        s = self.se_expand(torch.relu(self.se_reduce(y.mean((2, 3)))))
+        return y * torch.sigmoid(s)[:, :, None, None]
+
+
+class MAnet(_SegBase):
+    """Multi-scale Attention Net (smp.MAnet analogue): PAB on the bottleneck,
+    MFAB stages up the pyramid, a nearest 2x and a 16-channel conv block to
+    full resolution, head."""
+
+    def __init__(self, encoder_name: str = "resnet34", classes: int = 23,
+                 in_channels: int = 3, dtype: torch.dtype = torch.bfloat16,
+                 decoder_channels: Sequence[int] = (256, 128, 64, 32)):
+        super().__init__(encoder_name, classes, in_channels, dtype)
+        self.pab = _PAB(self.channels[5])
+        cin = self.channels[5]
+        self.n_stages = min(len(decoder_channels), 4)
+        for i, (skip, ch) in enumerate(zip((4, 3, 2, 1), decoder_channels)):
+            self.add_module(f"mfab{i}", _MFAB(cin, self.channels[skip], ch, dtype))
+            cin = ch
+        _add_conv_bn_relu(self, "final", cin, 16, 3, dtype)
+        self.head = _head(16, classes)
+
+    def forward(self, x):
+        h, w = x.shape[1], x.shape[2]
+        feats = self.encode(x)
+        y = self.pab(feats[5])
+        for i, skip in zip(range(self.n_stages), feats[4:0:-1]):
+            y = getattr(self, f"mfab{i}")(y, skip)
+        y = _conv_bn_relu(self, "final", _nearest2x(y))
+        return self._logits(self.head(y), h, w)

@@ -5,10 +5,12 @@ The JAX package flattens its variables to ``{'params/a/b/leaf': array,
 'batch_stats/a/b/leaf': array}``.  The port keeps the same module paths
 with three renames:
 
-- ``.../kernel`` -> ``....weight``: a conv's HWIO becomes OIHW, a dense
+- ``.../kernel`` -> ``....weight``: a conv's HWIO becomes OIHW (a
+  depthwise ``(kh, kw, 1, C)`` becomes ``(C, 1, kh, kw)``), a dense
   layer's (in, out) becomes ``nn.Linear``'s (out, in);
-- the encoder's auto-named ``Conv_{i}`` / ``BatchNorm_{i}`` ->
-  ``conv{i+1}`` / ``bn{i+1}`` (torchvision's names);
+- the encoder blocks' auto-named ``Conv_{i}`` / ``BatchNorm_{i}`` ->
+  ``conv{i+1}`` / ``bn{i+1}`` (torchvision's names; the ResNet blocks
+  ``stage{s}_block{b}``, MobileNetV2's ``ir0`` and ``stage{s}_block{b}``);
 - ``/`` -> ``.``.
 
 BatchNorm ``scale``/``bias`` (params) and ``mean``/``var``
@@ -27,7 +29,7 @@ _AUTO = re.compile(r"^(Conv|BatchNorm)_(\d+)$")
 _LEAVES = {"params": {"kernel", "bias", "scale"}, "batch_stats": {"mean", "var"}}
 _NORM_LEAVES = ("scale", "bias", "mean", "var")
 _PORT_AUTO = re.compile(r"^(conv|bn)(\d+)$")
-_ENCODER_BLOCK = re.compile(r"^stage\d+_block\d+$")
+_ENCODER_BLOCK = re.compile(r"^(stage\d+_block\d+|ir0)$")
 
 
 def _module_path(parts) -> str:
@@ -75,8 +77,8 @@ def from_jax_state_dict(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
 
 def _jax_module_path(parts) -> str:
     """Inverse of ``_module_path``: ``conv{i}`` / ``bn{i}`` directly under an
-    encoder block ``stage{s}_block{b}`` are flax's auto-named ``Conv_{i-1}`` /
-    ``BatchNorm_{i-1}``; every other name is kept."""
+    encoder block (``stage{s}_block{b}``, ``ir0``) are flax's auto-named
+    ``Conv_{i-1}`` / ``BatchNorm_{i-1}``; every other name is kept."""
     out = []
     for i, p in enumerate(parts):
         m = _PORT_AUTO.match(p)

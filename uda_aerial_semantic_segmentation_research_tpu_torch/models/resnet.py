@@ -1,15 +1,15 @@
-"""ResNet encoders producing the U-Net feature pyramid.
+"""ResNet and MobileNetV2 encoders producing the U-Net feature pyramid.
 
 Counterpart of the JAX package's ``models/resnet.py`` (resnet18/34/50/
-101/152; mobilenet_v2 comes later).  Modules compute on NCHW tensors in
+101/152 and mobilenet_v2).  Modules compute on NCHW tensors in
 channels_last memory, so the NHWC view of every activation is free;
-``ResNetEncoder.forward`` keeps the JAX package's NHWC boundary and
-returns the same 6-level pyramid
-``[identity, /2, /4, /8, /16, /32]``.
+``forward`` keeps the JAX package's NHWC boundary and returns the same
+6-level pyramid ``[identity, /2, /4, /8, /16, /32]``.
 
-Padding follows the JAX encoder exactly: torch-style symmetric ``k//2``
-for every conv (equal to SAME at stride 1), max-pool 3/2 with -inf
-padding 1.  Parameters are float32; activations run in ``dtype``.
+Padding follows the JAX encoders exactly: torch-style symmetric ``k//2``
+for every conv (equal to SAME at stride 1; the JAX ``_tpad`` at the
+stride-2 stems and depthwise convs), max-pool 3/2 with -inf padding 1.
+Parameters are float32; activations run in ``dtype``.
 
 ``remat`` (the JAX encoder's option, numerically the same network and the
 same parameters in every mode) recomputes activations in the backward
@@ -18,6 +18,8 @@ is never recomputed), ``"stageN..."`` only the blocks of those stages, and
 ``"convs"`` each normalize(+ReLU) between the convs, so that the conv
 outputs stay saved and only the elementwise chain runs again.  The
 recompute moves no BatchNorm buffer (``ops.batch_norm.checkpoint``).
+MobileNetV2 takes ``False``, ``True`` (each inverted residual block) and
+``"convs"``; a stage set raises, as in JAX.
 """
 
 from __future__ import annotations
@@ -47,10 +49,15 @@ def _remat_stage_set(remat):
     return None
 
 
-def norm_act(norm, x, relu: bool, remat: bool = False):
-    """``norm(x)``, then a ReLU if ``relu``; with ``remat`` the two are
-    recomputed in the backward (the ``"convs"`` mode)."""
-    fn = (lambda t: torch.relu(norm(t))) if relu else norm
+def norm_act(norm, x, relu, remat: bool = False):
+    """``norm(x)``, then a ReLU if ``relu`` (a ReLU6 if it is ``"relu6"``);
+    with ``remat`` the two are recomputed in the backward (the ``"convs"``
+    mode)."""
+    def fn(t):
+        y = norm(t)
+        if relu == "relu6":
+            return F.relu6(y)
+        return torch.relu(y) if relu else y
     return checkpoint(fn, x) if remat else fn(x)
 
 
@@ -62,8 +69,9 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
-def conv(cin: int, cout: int, k: int, stride: int = 1, bias: bool = False) -> Conv2d:
-    return Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=bias)
+def conv(cin: int, cout: int, k: int, stride: int = 1, bias: bool = False,
+         groups: int = 1) -> Conv2d:
+    return Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=bias, groups=groups)
 
 
 class BasicBlock(nn.Module):
@@ -173,6 +181,100 @@ class ResNetEncoder(nn.Module):
         return [f.permute(0, 2, 3, 1) for f in self.features(x.permute(0, 3, 1, 2))]
 
 
+class InvertedResidual(nn.Module):
+    """MobileNetV2 inverted residual: 1x1 expand (when ``expand`` > 1) ->
+    3x3 depthwise -> 1x1 project, each normalized, ReLU6 after the first
+    two; residual when stride 1 and the widths match.  The layers are
+    ``conv{i}`` / ``bn{i}`` in that order (flax's ``Conv_{i-1}`` /
+    ``BatchNorm_{i-1}``)."""
+
+    def __init__(self, cin: int, filters: int, stride: int, expand: int,
+                 dtype: torch.dtype):
+        super().__init__()
+        hidden = cin * expand
+        layers = [conv(cin, hidden, 1)] if expand != 1 else []
+        layers += [conv(hidden, hidden, 3, stride, groups=hidden), conv(hidden, filters, 1)]
+        for i, layer in enumerate(layers, 1):
+            self.add_module(f"conv{i}", layer)
+            self.add_module(f"bn{i}", BatchNorm(layer.out_channels, dtype=dtype))
+        self.n_layers = len(layers)
+        self.residual = stride == 1 and cin == filters
+
+    def forward(self, x, remat_norms: bool = False):
+        y = x
+        for i in range(1, self.n_layers + 1):
+            act = "relu6" if i < self.n_layers else False      # the projection is linear
+            y = norm_act(getattr(self, f"bn{i}"), getattr(self, f"conv{i}")(y), act,
+                         remat_norms)
+        return y + x if self.residual else y
+
+
+# (expand, filters, repeats, first stride) per MobileNetV2 stage
+MOBILENET_STAGES = ((6, 24, 2, 2), (6, 32, 3, 2), (6, 64, 4, 2), (6, 96, 3, 1),
+                    (6, 160, 3, 2), (6, 320, 1, 1))
+_MOBILENET_MARKS = (0, 1, 3)          # stages after which the pyramid takes /4, /8, /16
+
+
+class MobileNetV2Encoder(nn.Module):
+    """MobileNetV2 backbone with the smp-style 6-level pyramid, out channels
+    ``(3, 16, 24, 32, 96, 1280)``: a 3x3/2 stem, the block ``ir0`` (/2),
+    ``stage{s}_block{b}`` (0-based stages), a 1x1 ``head_conv`` to 1280.
+    ``remat``: ``False``, ``True`` or ``"convs"``, applied to the blocks
+    (``ir0`` included); a stage set raises."""
+
+    def __init__(self, in_channels: int = 3, dtype: torch.dtype = torch.bfloat16,
+                 remat=False):
+        super().__init__()
+        _mobilenet_remat(remat)
+        self.dtype = dtype
+        self.remat = remat
+        self.stem_conv = conv(in_channels, 32, 3, 2)
+        self.stem_norm = BatchNorm(32, dtype=dtype)
+        self.ir0 = InvertedResidual(32, 16, 1, 1, dtype)
+        self.stages: List[List[str]] = []
+        cin = 16
+        for si, (t, c, n, s) in enumerate(MOBILENET_STAGES):
+            names = []
+            for bi in range(n):
+                name = f"stage{si}_block{bi}"
+                self.add_module(name, InvertedResidual(cin, c, s if bi == 0 else 1, t, dtype))
+                cin = c
+                names.append(name)
+            self.stages.append(names)
+        self.head_conv = conv(cin, 1280, 1)
+        self.head_norm = BatchNorm(1280, dtype=dtype)
+
+    def _block(self, block, y):
+        if self.remat and self.remat != "convs":
+            return checkpoint(block, y)
+        return block(y, self.remat == "convs")
+
+    def features(self, x) -> List[torch.Tensor]:
+        """NCHW input -> NCHW pyramid (the U-Net's internal form)."""
+        _mobilenet_remat(self.remat)         # a clone may have set a stage set
+        feats = [x]
+        y = F.relu6(self.stem_norm(self.stem_conv(x.to(self.dtype))))
+        y = self._block(self.ir0, y)
+        feats.append(y)                                          # /2, 16ch
+        for si, names in enumerate(self.stages):
+            for name in names:
+                y = self._block(getattr(self, name), y)
+            if si in _MOBILENET_MARKS:
+                feats.append(y)                                  # /4, /8, /16
+        feats.append(F.relu6(self.head_norm(self.head_conv(y))))  # /32, 1280ch
+        return feats
+
+    def forward(self, x) -> List[torch.Tensor]:
+        """NHWC input -> NHWC pyramid, as the JAX encoder."""
+        return [f.permute(0, 2, 3, 1) for f in self.features(x.permute(0, 3, 1, 2))]
+
+
+def _mobilenet_remat(remat):
+    if _remat_stage_set(remat) is not None:
+        raise ValueError("stage-granular remat is ResNet-only; MobileNetV2 takes remat "
+                         "in {False, True, 'convs'}")
+
+
 ENCODERS = {
     "resnet18": dict(stage_sizes=(2, 2, 2, 2), block_cls=BasicBlock,
                      out_channels=(3, 64, 64, 128, 256, 512)),
@@ -184,6 +286,8 @@ ENCODERS = {
                       out_channels=(3, 64, 256, 512, 1024, 2048)),
     "resnet152": dict(stage_sizes=(3, 8, 36, 3), block_cls=Bottleneck,
                       out_channels=(3, 64, 256, 512, 1024, 2048)),
+    "mobilenet_v2": dict(stage_sizes=None, block_cls=InvertedResidual,
+                         out_channels=(3, 16, 24, 32, 96, 1280)),
 }
 
 
@@ -192,10 +296,12 @@ def encoder_out_channels(encoder_name: str):
 
 
 def build_encoder(encoder_name: str, in_channels: int = 3,
-                  dtype: torch.dtype = torch.bfloat16, remat=False) -> ResNetEncoder:
+                  dtype: torch.dtype = torch.bfloat16, remat=False) -> nn.Module:
     if encoder_name not in ENCODERS:
         raise ValueError(
             f"Unknown encoder '{encoder_name}'; available: {sorted(ENCODERS)}")
+    if encoder_name == "mobilenet_v2":
+        return MobileNetV2Encoder(in_channels=in_channels, dtype=dtype, remat=remat)
     spec = ENCODERS[encoder_name]
     return ResNetEncoder(spec["stage_sizes"], spec["block_cls"],
                          in_channels=in_channels, dtype=dtype, remat=remat)
