@@ -8,6 +8,7 @@
     python3 chip_smoke.py --compare-dihedral-source OLD.cu
         # only: dihedral_normalize against the one built from an older
         # dihedral_normalize.cu, at the train step's shape, in turns
+    python3 chip_smoke.py --only-scan      # only: 3c and phases 15-16
 
 1. prints the card (``nvidia-smi`` name and power limit);
 2. builds the port's four CUDA libraries from ``csrc/`` with nvcc, all
@@ -230,8 +231,46 @@
    kernels against their plain versions at every BatchNorm input shape no
    earlier phase has (bulk and generic path, timed as in 3 with
    ``torch.var_mean`` as the library call).  Prints an ``architectures``
-   line.  The script's own wall time is printed before the ``kernels``
    line.
+15. (after 14, in a spawned process of its own, with 16) ``make_scan_driver``:
+   the train steps as CUDA graphs at full width (512 px, bf16, B=32, WEAK /
+   STRONG, capturable states): the resnet34 U-Net's phase-1 step with
+   plain and with fused CE (S=4, unroll 1 and 4), the phase-2 step (S=2),
+   the phase-3 production point (S=2: the sequential step, encoder remat,
+   bf16 logits and carry, an ``(S,)`` epoch) and the GRL sequential step at
+   resnet50 (S=2, an ``(S,)`` alpha).  Per case: two eager runs of the S
+   steps from the same state and generator seed, then the scan driver's first
+   call (warm-up, capture, replays); every metric, parameter, buffer, Adam
+   tensor and step counter of the scan driver bit-identical to the eager run's
+   where the two eager runs are bit-identical, elsewhere within their gap
+   (printed); the device census of one replayed call (profiler: sums
+   kernels by their DUAL flag, the dihedral kernel, ``ce_fwd`` / ``ce_bwd``)
+   equal to the eager step's (46 / 46 / 1 / 0, with fused CE 46 / 46 / 1 / 2,
+   52 / 52 / 2 / 0, 211 / 95 / 2 / 0, 122 / 122 / 2 / 0), itself checked
+   against the eager step's profile; one call under
+   ``set_sync_debug_mode("error")``.  A ``phase 15`` line per case: eager
+   p50 step ms, graph ms per step (CUDA events over a call of replays),
+   host µs per call, busy share, warm-up and capture ms, the first call's
+   peak and the graph pool's size.
+16. ``Unet(fused_decoder=...)``: ``False``, ``True`` and ``"dilated"`` at
+   resnet34, 23 classes, bf16, the same weights, timed in turns (naive,
+   ``True``, ``"dilated"``, then back): the phase-1 bare step (WEAK, fused
+   CE, B=32, ``measure_step``: ms, peak above what is resident, launches 46
+   / 46 / 1 / 2, no host sync), the same step as ``make_scan_driver``'s
+   CUDA graph replays (S=2: its device time) and the serving forward at
+   B=32 with ``fused_eval`` off and on (ms, peak, 0 / 2 ``conv_bn_relu``
+   launches); each fused
+   schedule in float32 on the card against the naive one (B=4: eval and
+   train-mode logits 2e-4, the CE 1e-5 relative, its gradients 3e-2
+   relative L2 and the head's 1e-4, the CPU test's tolerances).
+3c (in the main process, after 3b) each kernel alone in a CUDA graph at
+   its main-path shapes (``conv_bn_relu`` at the two serving shapes, the
+   sums and dual at the step's seven BatchNorm inputs, ``dihedral_normalize``
+   with and without masks, ``fused_cross_entropy`` forward and backward in
+   bf16), captured on a side stream after one launch there, replayed three
+   times, bit for bit against the eager launch: a ``capture_check`` line
+   and each ``kernels`` entry's ``capture_check``.
+The script's own wall time is printed before the ``kernels`` line.
 
 Any failed check raises and the script exits non-zero; without a CUDA
 device it exits non-zero before printing any result.  It imports
@@ -244,6 +283,7 @@ import argparse
 import collections
 import copy
 import dataclasses
+import functools
 import itertools
 import json
 import math
@@ -3343,6 +3383,527 @@ def architectures_phase(card) -> dict:
         return pool.apply(_architectures_child, (card,))
 
 
+# ---------------------------------------------------------------------------
+# the capture check of each kernel (3c) and phases 15-16
+# ---------------------------------------------------------------------------
+def raw_bits(t):
+    """A tensor's bits as integers (any float dtype), so NaN equals NaN."""
+    t = t.detach()
+    if t.is_floating_point():
+        return t.view({8: torch.int64, 4: torch.int32, 2: torch.int16}[t.element_size()])
+    return t
+
+
+def same_bits(a, b) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(raw_bits(a), raw_bits(b))
+
+
+def captured_vs_eager(fn, replays: int = 3) -> dict:
+    """``fn()`` (a tuple of tensors) launched alone inside a CUDA graph --
+    captured on a side stream after one launch there, which makes that
+    stream's scratch -- and replayed ``replays`` times, each replay's
+    outputs held bit for bit against the eager launch on the default stream."""
+    eager = [t.detach().clone() for t in fn()]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+        outs = fn()
+    for _ in range(replays):
+        for t in outs:
+            t.detach().zero_()            # stale values cannot pass for a replay's
+        graph.replay()
+        torch.cuda.synchronize()
+        if not all(same_bits(g, e) for g, e in zip(outs, eager)):
+            raise AssertionError("a replay of the captured launch differs from the eager one")
+    del graph
+    return {"bit_identical": True, "replays": replays, "outputs": len(eager)}
+
+
+def capture_checks(cbr, sums_ops, dihedral_ops, ce_ops, gen, host_rng) -> dict:
+    """Phase 3c: each kernel alone in a captured graph at its main-path shapes,
+    replayed, bit for bit against its eager launch (``captured_vs_eager``)."""
+    out = {"conv_bn_relu": [], "channel_sums": [], "dihedral_normalize": [],
+           "fused_cross_entropy": []}
+    for b, h, w, ci, co in SLICE_SHAPES:            # the serving decoder's two launches
+        x, k3, scale, shift = kernel_inputs(gen, b, h, w, ci, co, torch.bfloat16)
+        res = captured_vs_eager(lambda: (cbr.conv_bn_relu(x, k3, scale, shift),))
+        out["conv_bn_relu"].append({"shape": [b, h, w, ci, co], **res})
+    for shape in sorted(BN_SHAPES):                  # the train step's BatchNorm inputs
+        dy, x = sums_inputs(gen, shape, torch.bfloat16)
+        res = captured_vs_eager(lambda: (sums_ops.channel_sums(x),
+                                         sums_ops.channel_dual_sums(dy, x)))
+        out["channel_sums"].append({"shape": list(shape), **res})
+    images, _, masks = dihedral_case(host_rng, TRAIN_BATCH, TILE, 3, torch.uint8, False, False)
+    flags = dihedral_flags(host_rng, "mixed", TRAIN_BATCH)
+    for with_masks in (True, False):
+        res = captured_vs_eager(lambda: tuple(t for t in dihedral_ops.dihedral_normalize(
+            images, flags, masks if with_masks else None) if t is not None))
+        out["dihedral_normalize"].append({"shape": [TRAIN_BATCH, TILE, TILE, 3],
+                                          "masks": with_masks, **res})
+    logits = (3 * torch.randn((TRAIN_BATCH, TILE, TILE, CLASSES), generator=gen,
+                              device="cuda")).bfloat16()
+    labels = torch.randint(0, CLASSES, logits.shape[:-1], generator=gen, device="cuda",
+                           dtype=torch.int32).to(torch.uint8)
+
+    def ce():
+        x = logits.detach().requires_grad_()
+        loss = ce_ops.fused_cross_entropy(x, labels)
+        return (loss.detach(), torch.autograd.grad(loss, x)[0])
+
+    out["fused_cross_entropy"].append({"shape": list(logits.shape), "dtype": "bfloat16",
+                                       "passes": "forward + backward", **captured_vs_eager(ce)})
+    print(json.dumps({"capture_check": out}), flush=True)
+    return out
+
+
+# phase 15: the scan driver at full width; (label, step kind, S, unrolls,
+# launches a step: channel_sums / channel_dual_sums / dihedral_normalize /
+# fused_cross_entropy)
+SCAN_CASES = [("phase1", "supervised", 4, (1, 4), (46, 46, 1, 0)),
+              ("phase1_fused_ce", "supervised_fused", 4, (1, 4), (46, 46, 1, 2)),
+              ("phase2", "adversarial", 2, (1,), (52, 52, 2, 0)),
+              ("phase3_production", "unsupervised", 2, (1,), (211, 95, 2, 0)),
+              ("grl_phase2", "grl", 2, (1,), (122, 122, 2, 0))]
+CENSUS_KEYS = ("channel_sums", "channel_dual_sums", "dihedral_normalize", "fused_cross_entropy")
+SCAN_EPOCHS, SCAN_ALPHAS = (20.0, 21.0), (0.5, 1.0)
+
+
+def kernel_census(names) -> dict:
+    """Wrapper launches implied by device kernel names: one sums kernel per
+    ``channel_sums`` / ``channel_dual_sums`` call (its DUAL template flag
+    tells which), one dihedral kernel per call, ``ce_fwd_kernel`` /
+    ``ce_bwd_kernel`` per fused CE pass (the fold kernel rides with the
+    forward), one ``conv_bn_relu`` kernel per call (not its moments fold)."""
+    census = dict.fromkeys(("conv_bn_relu",) + CENSUS_KEYS, 0)
+    for name in names:
+        if "channel_sums_" in name and "_kernel<" in name:
+            dual = "true>" in name
+            if not dual and "false>" not in name:
+                raise AssertionError(f"cannot tell a sums kernel's kind from {name[:120]}")
+            census["channel_dual_sums" if dual else "channel_sums"] += 1
+        elif "dihedral_normalize_" in name:
+            census["dihedral_normalize"] += 1
+        elif "ce_fwd_kernel" in name or "ce_bwd_kernel" in name:
+            census["fused_cross_entropy"] += 1
+        elif "conv_bn_relu" in name and "fold" not in name:
+            census["conv_bn_relu"] += 1
+    return census
+
+
+def device_window(fn, expected=None, windows: int = 2):
+    """One call of ``fn`` (already warm) under the profiler: the device events'
+    names, their busy union over the host wall time of the window, and their
+    summed ms.  The profiler can drop events but never adds any, so a window
+    whose ``kernel_census`` is not ``expected`` is taken again, up to
+    ``windows`` times, and the fullest is returned."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    best = None
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        events = [e for e in prof.events() if on_device(e)]
+        if best is None or len(events) > len(best[0]):
+            best = (events, wall_us)
+        if expected is not None and kernel_census([e.name for e in events]) == expected:
+            break
+    events, wall_us = best
+    spans = [(e.time_range.start, e.time_range.end) for e in events]
+    return ([e.name for e in events], union_us(spans) / wall_us if spans else None,
+            sum(e - s for s, e in spans) / 1e3)
+
+
+def scan_snapshot(state) -> dict:
+    """Every tensor a train step updates, per ``TrainState`` of ``state``
+    (parameters, buffers, Adam state, step counter): clones."""
+    from uda_aerial_semantic_segmentation_research_tpu_torch.training.steps import (
+        _train_states,
+    )
+
+    snap = {}
+    for i, st in enumerate(_train_states(state)):
+        names = {id(p): k for k, p in st.model.named_parameters()}
+        for k, v in itertools.chain(st.model.named_parameters(), st.model.named_buffers()):
+            snap[f"{i}/{k}"] = v.detach().clone()
+        for p, per in st.optimizer.state.items():
+            snap.update({f"{i}/adam/{names[id(p)]}/{k}": v.clone() for k, v in per.items()})
+        snap[f"{i}/step"] = torch.as_tensor(st.step).clone()
+    return snap
+
+
+def hold_scan(label, a, b, g) -> dict:
+    """The scan driver's tensors ``g`` against two eager runs ``a`` and ``b`` (dicts
+    of metrics and state): bit-identical wherever ``a`` and ``b`` are; where
+    they differ, within their gap (the largest |a - b| of the tensor)."""
+    if set(g) != set(a):
+        raise AssertionError(f"{label}: the scan driver's tensors are not the eager ones")
+    ident, noisy = 0, {}
+    for k in a:
+        if same_bits(a[k], b[k]):
+            if not same_bits(g[k], a[k]):
+                err = (g[k].double() - a[k].double()).abs().max().item()
+                raise AssertionError(f"{label}: {k} differs from the eager steps by {err}, "
+                                     "where two eager runs are bit-identical")
+            ident += 1
+            continue
+        gap = (a[k].double() - b[k].double()).abs().max().item()
+        err = (g[k].double() - a[k].double()).abs().max().item()
+        noisy[k] = {"eager_gap": gap, "graph_vs_eager": err}
+        if not err <= gap:
+            raise AssertionError(f"{label}: {k} differs from the eager steps by {err}, "
+                                 f"beyond the eager runs' own gap {gap}")
+    return {"tensors": len(a), "eager_runs_bit_identical": ident,
+            "graph_bit_identical": ident + sum(v["graph_vs_eager"] == 0 for v in noisy.values()),
+            "within_eager_gap": noisy}
+
+
+def drive_scan(counters, card, host_rng) -> dict:
+    """Phase 15: ``make_scan_driver`` on the card (see main)."""
+    import gc
+
+    from uda_aerial_semantic_segmentation_research_tpu_torch.models import (
+        DomainAdaptationModel,
+        create_discriminator,
+        create_uda_model,
+        create_unet,
+    )
+    from uda_aerial_semantic_segmentation_research_tpu_torch.ops.losses import FineTuningLoss
+    from uda_aerial_semantic_segmentation_research_tpu_torch.training import steps as step_lib
+    from uda_aerial_semantic_segmentation_research_tpu_torch.training.state import (
+        AdversarialState,
+        TrainState,
+        adam,
+    )
+
+    seg0 = create_unet("resnet34", classes=CLASSES, seed=SEED, dtype=torch.bfloat16,
+                       device="cuda")
+    disc0 = create_discriminator(seed=SEED + 1, dtype=torch.bfloat16, device="cuda")
+    uda0 = create_uda_model(MULTI_ENCODER, classes=CLASSES, seed=SEED, dtype=torch.bfloat16,
+                            device="cuda")
+
+    def fresh_case(kind):
+        """A fresh capturable state over copies of the seeded models, and its step."""
+        seg, disc = copy.deepcopy(seg0), copy.deepcopy(disc0)
+        if kind.startswith("supervised"):
+            return (TrainState(seg, adam(1e-4), capturable=True),
+                    step_lib.make_supervised_train_step(seg, CLASSES,
+                                                        fused_ce=kind.endswith("fused")))
+        if kind == "adversarial":
+            return (AdversarialState(TrainState(seg, adam(PROD_LR["phase2"]), capturable=True),
+                                     TrainState(disc, adam(PROD_LR["phase2"]),
+                                                capturable=True)),
+                    step_lib.make_adversarial_train_step(seg, disc, CLASSES))
+        if kind == "unsupervised":       # the production point, as phase 13 runs it
+            state = TrainState(DomainAdaptationModel(seg, disc),
+                               adam(PROD_LR["phase3"], clip_norm=1.0), skip_nonfinite=True,
+                               capturable=True)
+            return state, step_lib.make_unsupervised_sequential_step(
+                seg.clone(remat="encoder", logits_dtype=torch.bfloat16), disc, CLASSES,
+                FineTuningLoss(), carry_dtype=torch.bfloat16)
+        model = copy.deepcopy(uda0)
+        return (TrainState(model, adam(5e-5), capturable=True),
+                step_lib.make_grl_sequential_step(model, CLASSES, lambda_domain=0.001))
+
+    data_gen = torch.Generator(device="cuda").manual_seed(int(host_rng.integers(2 ** 31)))
+
+    def stacked(kind, s):
+        def u8(shape, high):       # made on the card: no host bytes to draw and copy
+            return torch.randint(0, high, shape, generator=data_gen, device="cuda",
+                                 dtype=torch.uint8)
+        images = u8((s, TRAIN_BATCH, TILE, TILE, 3), 256)
+        masks = u8((s, TRAIN_BATCH, TILE, TILE), CLASSES)
+        if kind.startswith("supervised"):
+            return (images, masks)
+        if kind == "adversarial":
+            return (images, masks, u8((s, TRAIN_BATCH, TILE, TILE, 3), 256))
+        if kind == "unsupervised":
+            return (images, torch.tensor(SCAN_EPOCHS[:s], dtype=torch.float32, device="cuda"))
+        return (images, masks, u8((s, TRAIN_BATCH, TILE, TILE, 3), 256),
+                torch.tensor(SCAN_ALPHAS[:s], dtype=torch.float32, device="cuda"))
+
+    def release():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    results = {}
+    for label, kind, s, unrolls, expected in SCAN_CASES:
+        expected = dict(zip(CENSUS_KEYS, expected), conv_bn_relu=0)
+        t_case = time.perf_counter()
+        batches = stacked(kind, s)
+        # two eager runs of S steps from the same state and generator seed
+        eager = []
+        for run in range(2):
+            state, step = fresh_case(kind)
+            gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+            per_step, times = [], []
+            for i in range(s):
+                before = read_counts(counters)
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                    enable_timing=True)
+                start.record()
+                state, metrics = step(state, gen, *(b[i] for b in batches))
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+                after = read_counts(counters)
+                launches = {k: after[k] - before[k] for k in after}
+                if launches != expected:
+                    raise AssertionError(f"{label}: eager launches {launches}, expected "
+                                         f"{expected}")
+                per_step.append(metrics)
+            tensors = {f"metric/{k}": torch.stack([m[k] for m in per_step]) for k in per_step[0]}
+            tensors.update(scan_snapshot(state))
+            eager.append((tensors, times))
+            del state, step, per_step
+            release()
+        eager_times = eager[0][1][1:] + eager[1][1]       # the first step warms up
+        # the eager step's device census, which checks the classifier
+        state, step = fresh_case(kind)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+        names, _, _ = device_window(lambda: step(state, gen, *(b[0] for b in batches)),
+                                    expected)
+        if kernel_census(names) != expected:
+            raise AssertionError(f"{label}: eager device census {kernel_census(names)}, "
+                                 f"expected {expected}")
+        del state, step, names
+        release()
+        for unroll in unrolls:
+            state, step = fresh_case(kind)
+            multi = step_lib.make_scan_driver(step, unroll=unroll)
+            gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+            release()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            state, metrics = multi(state, gen, *batches)
+            torch.cuda.synchronize()
+            first_call_s = time.perf_counter() - t0
+            first_peak = torch.cuda.max_memory_allocated() - base
+            (entry,) = multi.graphs.values()
+            tensors = {f"metric/{k}": v for k, v in metrics.items()}
+            tensors.update(scan_snapshot(state))
+            held = hold_scan(f"{label} unroll {unroll}", eager[0][0], eager[1][0], tensors)
+            counts = [int(st.step) for st in step_lib._train_states(state)]
+            if counts != [s] * len(counts):
+                raise AssertionError(f"{label}: step counters {counts} after {s} steps")
+            del tensors
+            # a second call: replays only
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                enable_timing=True)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")     # a host sync in a replay raises
+            try:
+                start.record()
+                t0 = time.perf_counter()
+                multi(state, gen, *batches)
+                host_us = (time.perf_counter() - t0) * 1e6
+                end.record()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            end.synchronize()
+            graph_ms = start.elapsed_time(end) / s
+            names, busy, device_ms_call = device_window(
+                lambda: multi(state, gen, *batches), {k: v * s for k, v in expected.items()})
+            census = kernel_census(names)
+            per_step_census = {k: v / s for k, v in census.items()}
+            if per_step_census != {k: float(v) for k, v in expected.items()}:
+                raise AssertionError(f"{label} unroll {unroll}: {census} device launches in "
+                                     f"{s} replayed steps, expected {expected} a step")
+            rec = {"steps": s, "unroll": unroll, "replays_per_call": s // unroll,
+                   "eager_step_ms_p50": statistics.median(eager_times),
+                   "graph_ms_per_step": graph_ms, "host_us_per_call": host_us,
+                   "busy_share": busy, "device_ms_per_step": device_ms_call / s,
+                   "warmup_ms": entry.warmup_s * 1e3, "capture_ms": entry.capture_s * 1e3,
+                   "first_call_s": first_call_s,
+                   "first_call_peak_gib": first_peak / 2 ** 30,
+                   "graph_pool_gib": graph_pool_bytes(entry.graph) / 2 ** 30,
+                   "launches_per_step_replayed": per_step_census, "host_syncs_in_replays": 0,
+                   "held": held, "case_wall_s": time.perf_counter() - t_case, "card": card}
+            results[f"{label} unroll {unroll}"] = rec
+            print(f"phase 15 {label} unroll {unroll}: {json.dumps(rec)}", flush=True)
+            del state, step, multi, entry, metrics
+            release()
+        del batches, eager
+        release()
+    return {"cases": results}
+
+
+def graph_pool_bytes(graph) -> int:
+    """Bytes of the segments the caching allocator holds for ``graph``'s
+    private pool (0 when the snapshot does not say)."""
+    pool = graph.pool()
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+
+
+DECODER_SCHEDULES = (False, True, "dilated")
+
+
+def drive_fused_decoder(counters, card, host_rng) -> dict:
+    """Phase 16: the U-Net's ``fused_decoder`` schedules on the card (see main)."""
+    import gc
+
+    from uda_aerial_semantic_segmentation_research_tpu_torch.models import create_unet
+    from uda_aerial_semantic_segmentation_research_tpu_torch.ops.losses import (
+        softmax_cross_entropy,
+    )
+    from uda_aerial_semantic_segmentation_research_tpu_torch.training.state import (
+        TrainState,
+        adam,
+    )
+    from uda_aerial_semantic_segmentation_research_tpu_torch.training.steps import (
+        make_predict_step,
+        make_scan_driver,
+        make_supervised_train_step,
+    )
+
+    weights = create_unet("resnet34", classes=CLASSES, seed=SEED, dtype=torch.bfloat16,
+                          device="cuda").state_dict()
+    batches = [tuple(torch.from_numpy(a).cuda() for a in b)
+               for b in train_batches(host_rng, 2)]
+    small = torch.from_numpy(host_rng.normal(size=(4, TILE, TILE, 3)).astype(np.float32)).cuda()
+    labels = torch.from_numpy(host_rng.integers(0, CLASSES, (4, TILE, TILE))).cuda()
+
+    def model(fused_decoder, dtype=torch.bfloat16, fused_eval=False):
+        m = create_unet("resnet34", classes=CLASSES, seed=SEED, dtype=dtype, device="cuda",
+                        fused_decoder=fused_decoder, fused_eval=fused_eval)
+        m.load_state_dict(weights, strict=True)
+        return m
+
+    def f32_run(fused_decoder):
+        m = model(fused_decoder, torch.float32)
+        with torch.no_grad():
+            eval_logits = m(small[:2])
+        m.train()
+        logits = m(small)
+        loss = softmax_cross_entropy(logits, labels)
+        loss.backward()
+        grads = {k: p.grad.detach().clone() for k, p in m.named_parameters()}
+        return eval_logits, logits.detach(), loss.item(), grads
+
+    naive32 = f32_run(False)
+    out = {repr(fd): {"train_step": [], "graph_ms_per_step": [], "serving_fused_eval_False": [],
+                      "serving_fused_eval_True": [], "card": card} for fd in DECODER_SCHEDULES}
+    # every schedule built once from the same weights, then timed in turns
+    # (naive, True, "dilated", "dilated", True, naive): a run's drift falls on
+    # all three alike
+    def bound(step, state, gen):
+        return lambda b: step(state, gen, *b)
+
+    # the same step as S=2 CUDA graph replays (make_scan_driver): its device
+    # time, without the eager step's host gaps
+    stacked = [torch.stack(parts) for parts in zip(*batches)]
+    train, graphs, serve = {}, {}, {}
+    for fd in DECODER_SCHEDULES:
+        m = model(fd)
+        state = TrainState(m, adam(1e-4))
+        step = make_supervised_train_step(m, CLASSES, fused_ce=True)      # WEAK
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+        train[fd] = bound(step, state, gen)
+        m = model(fd)
+        state = TrainState(m, adam(1e-4), capturable=True)
+        multi = make_scan_driver(make_supervised_train_step(m, CLASSES, fused_ce=True))
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+        multi(state, gen, *stacked)                       # warm-up, capture, replays
+        graphs[fd] = functools.partial(multi, state, gen, *stacked)
+        for fused_eval in (False, True):
+            serve[fd, fused_eval] = make_predict_step(model(fd, fused_eval=fused_eval))
+    x = batches[0][0]
+    for fd in DECODER_SCHEDULES + DECODER_SCHEDULES[::-1]:
+        base = torch.cuda.memory_allocated()
+        rec = measure_step(train[fd], batches, counters)
+        if rec["launches_per_step"] != {"conv_bn_relu": 0, "channel_sums": 46,
+                                        "channel_dual_sums": 46, "dihedral_normalize": 1,
+                                        "fused_cross_entropy": 2}:
+            raise AssertionError(f"fused_decoder={fd!r}: step launches "
+                                 f"{rec['launches_per_step']}")
+        rec["peak_above_resident_gib"] = rec.pop("peak_mem_gib") - base / 2 ** 30
+        out[repr(fd)]["train_step"].append(rec)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        graphs[fd]()
+        end.record()
+        end.synchronize()
+        out[repr(fd)]["graph_ms_per_step"].append(start.elapsed_time(end) / len(batches))
+        for fused_eval in (False, True):
+            pred = serve[fd, fused_eval]
+            before = read_counts(counters)
+            logits = pred(x)
+            torch.cuda.synchronize()
+            n_cbr = read_counts(counters)["conv_bn_relu"] - before["conv_bn_relu"]
+            if n_cbr != (2 if fused_eval else 0) or not torch.isfinite(logits).all():
+                raise AssertionError(f"fused_decoder={fd!r} fused_eval={fused_eval}: "
+                                     f"{n_cbr} conv_bn_relu launches")
+            del logits
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            ms = time_ms(lambda: pred(x), reps=10)
+            out[repr(fd)][f"serving_fused_eval_{fused_eval}"].append({
+                "forward_ms": ms, "tiles_per_s": TRAIN_BATCH / ms * 1e3,
+                "peak_above_resident_gib": (torch.cuda.max_memory_allocated() - base) / 2 ** 30})
+    del train, graphs, serve
+    gc.collect()
+    torch.cuda.empty_cache()
+    for fd in DECODER_SCHEDULES[1:]:      # float32 on the card against the naive schedule
+        ev, lg, loss, grads = f32_run(fd)
+        torch.testing.assert_close(ev, naive32[0], rtol=2e-4, atol=2e-4)
+        torch.testing.assert_close(lg, naive32[1], rtol=2e-4, atol=2e-4)
+        if abs(loss - naive32[2]) > 1e-5 * abs(naive32[2]):
+            raise AssertionError(f"fused_decoder={fd!r}: f32 loss {loss} vs {naive32[2]}")
+        ref = naive32[3]
+        num = sum((grads[k].double() - ref[k].double()).norm() ** 2 for k in ref) ** 0.5
+        den = sum(ref[k].double().norm() ** 2 for k in ref) ** 0.5
+        head = "segmentation_head.weight"
+        head_err = ((grads[head] - ref[head]).abs().max() / ref[head].abs().max()).item()
+        if not (num / den <= 3e-2 and head_err <= 1e-4):
+            raise AssertionError(f"fused_decoder={fd!r}: f32 gradients rel L2 "
+                                 f"{(num / den).item()}, head {head_err}")
+        out[repr(fd)]["f32_vs_naive"] = {
+            "eval_logits_max_abs": (ev - naive32[0]).abs().max().item(),
+            "train_logits_max_abs": (lg - naive32[1]).abs().max().item(),
+            "loss_rel": abs(loss - naive32[2]) / abs(naive32[2]),
+            "grad_rel_l2": (num / den).item(), "head_grad_rel": head_err,
+            "tolerance": "logits 2e-4, loss 1e-5, gradients 3e-2 rel L2 and 1e-4 head"}
+        del ev, lg, grads
+    for fd in DECODER_SCHEDULES:
+        print(f"phase 16 fused_decoder={fd!r}: {json.dumps(out[repr(fd)])}", flush=True)
+    return out
+
+
+def _scan_child(card) -> dict:
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counters = kernel_counters()
+    t0 = time.perf_counter()
+    scan = drive_scan(counters, card, np.random.default_rng(SEED + 15))
+    scan["phase_wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    decoder = drive_fused_decoder(counters, card, np.random.default_rng(SEED + 16))
+    return {"scan": scan, "fused_decoder": decoder,
+            "fused_decoder_wall_s": time.perf_counter() - t0,
+            "launches": read_counts(counters)}
+
+
+def scan_phase(card) -> dict:
+    """Phases 15 and 16 in a fresh process of their own (spawned, as phases 9-14)."""
+    import multiprocessing
+
+    torch.cuda.empty_cache()
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        return pool.apply(_scan_child, (card,))
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--probe-batch", type=int, default=None,
@@ -3355,6 +3916,8 @@ def main(argv=None) -> int:
     parser.add_argument("--compare-dihedral-source", default=None, metavar="CU_FILE",
                         help="only time the dihedral_normalize kernel against the one "
                              "built from this (older) source, at the train step's shape")
+    parser.add_argument("--only-scan", action="store_true",
+                        help="only the kernels' capture checks (3c) and phases 15-16")
     args = parser.parse_args(argv)
     t_script = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3419,6 +3982,17 @@ def main(argv=None) -> int:
         print(card_line())
         return 0
     counters = kernel_counters()
+    if args.only_scan:
+        capture_checks(cbr, sums_ops, dihedral_ops, ce_ops,
+                       torch.Generator(device="cuda").manual_seed(SEED),
+                       np.random.default_rng(SEED))
+        t0 = time.perf_counter()
+        scan_result = scan_phase(card)
+        print(json.dumps({"scan": scan_result["scan"], "process_wall_s":
+                          time.perf_counter() - t0}), flush=True)
+        print(json.dumps({"fused_decoder": scan_result["fused_decoder"]}), flush=True)
+        print(card_line())
+        return 0
 
     # 3a. conv_bn_relu vs plain version on the card
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -3668,6 +4242,9 @@ def main(argv=None) -> int:
     augment_results = time_augment_batch(augment, dihedral_ops, host_rng, card)
     check_augment_card_vs_cpu(augment, dihedral_ops, host_rng)
     ce_results = {dt: check_fused_ce(ce_ops, gen, dt) for dt in (torch.float32, torch.bfloat16)}
+    # 3c. each kernel alone in a captured CUDA graph, replayed, against its
+    #     eager launch bit for bit
+    captured = capture_checks(cbr, sums_ops, dihedral_ops, ce_ops, gen, host_rng)
 
     # 7. one float32 train step on the card (kernels) against the same step on
     #    a CPU copy of the model (plain versions), WEAK with host draws
@@ -3726,10 +4303,21 @@ def main(argv=None) -> int:
     architectures_counts = architectures_result["launches"]
     print(json.dumps({"architectures": architectures_result}), flush=True)
 
+    # 15-16. make_scan_driver's CUDA graphs of the train steps, and the
+    #        U-Net's fused_decoder schedules, in a process of their own
+    t0 = time.perf_counter()
+    scan_result = scan_phase(card)
+    scan_result["process_wall_s"] = time.perf_counter() - t0            # spawn to result
+    scan_counts = scan_result["launches"]
+    print(json.dumps({"scan": scan_result["scan"],
+                      "process_wall_s": scan_result["process_wall_s"]}), flush=True)
+    print(json.dumps({"fused_decoder": scan_result["fused_decoder"]}), flush=True)
+
     # 8. results
     total = {k: serving_counts[k] + train_counts[k] + eval_counts[k] + trainer_counts[k]
              + pipeline_counts[k] + multiphase_counts[k] + system_counts[k]
-             + production_counts[k] + architectures_counts.get(k, 0) for k in counters}
+             + production_counts[k] + architectures_counts.get(k, 0) + scan_counts[k]
+             for k in counters}
     if min(total.values()) == 0:
         raise AssertionError(f"a kernel never launched on the main paths: {total}")
     src = f"{PORT}/csrc"
@@ -3746,6 +4334,7 @@ def main(argv=None) -> int:
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in path_cases)
         else "operations",
         "library_ms": sum(r["library_ms"] for r in path_cases),
+        "capture_check": captured["conv_bn_relu"],
         "share_of_bound": (sum(r["bound_ms"] for r in path_cases)
                            / sum(r["kernel_ms"] for r in path_cases)),
         "per_shape": [{k: r[k] for k in ("shape", "kernel_ms", "plain_ms", "library_ms",
@@ -3760,6 +4349,7 @@ def main(argv=None) -> int:
         "launches": total["channel_sums"] + total["channel_dual_sums"],
         "launches_forward": total["channel_sums"],
         "launches_backward": total["channel_dual_sums"],
+        "capture_check": captured["channel_sums"],
         "device_kernels_per_call": sums_launch_checks["device_kernels_per_call"],
         "host_us_per_call": sums_launch_checks["host_us_per_call"],
         "max_abs_err": max(r["max_abs_err"] for r in
@@ -3812,6 +4402,7 @@ def main(argv=None) -> int:
         "name": "dihedral_normalize", "route": "cuda",
         "source": f"{src}/dihedral_normalize.cu",
         "replaces": f"{JAX_OPS}/pallas_ops.py:138", "launches": total["dihedral_normalize"],
+        "capture_check": captured["dihedral_normalize"],
         "max_abs_err": dihedral_result["max_abs_err"],
         # the mixed batch (all eight elements), 20 launches per event pair, cold
         "ms": dihedral_result["mixed"]["ms"],
@@ -3834,12 +4425,14 @@ def main(argv=None) -> int:
         "ms": ce32["fwd_bwd_ms"], "forward_ms": ce32["fwd_ms"],
         "plain_ms": ce32["plain_fwd_bwd_ms"], "bound_ms": ce32["bound_ms"],
         "bound_by": ce32["bound_by"], "library_ms": ce32["library_fwd_bwd_ms"],
+        "capture_check": captured["fused_cross_entropy"],
     }]
     print(f"chip_smoke wall time: {time.perf_counter() - t_script:.1f} s (phase 11 with "
           f"its process: {multiphase_result['process_wall_s']:.1f} s, phase 12: "
           f"{system_result['process_wall_s']:.1f} s, phase 13: "
           f"{production_result['process_wall_s']:.1f} s, phase 14: "
-          f"{architectures_result['process_wall_s']:.1f} s)", flush=True)
+          f"{architectures_result['process_wall_s']:.1f} s, phases 15-16: "
+          f"{scan_result['process_wall_s']:.1f} s)", flush=True)
     print(json.dumps({"kernels": entries}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

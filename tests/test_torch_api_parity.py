@@ -7,7 +7,7 @@
   ``create_model`` the same parameter tree, and the seed where JAX has it);
 - every package whose JAX counterpart has an ``__all__`` exports the same
   names, less those ``ROADMAP.md`` lists as not ported (``ModelBundle``,
-  ``AsyncPytreeCheckpointer``, ``upsample_conv``, ``pallas_ops``; the
+  ``AsyncPytreeCheckpointer``, ``pallas_ops``; the
   ``parallel`` package is multi-device work, ``ROADMAP.md`` A.14).
 """
 
@@ -34,7 +34,7 @@ from uda_aerial_semantic_segmentation_research_tpu_torch.models import (
 
 JAX = "uda_aerial_semantic_segmentation_research_tpu"
 PORT = f"{JAX}_torch"
-NOT_PORTED = {"ModelBundle", "AsyncPytreeCheckpointer", "upsample_conv", "pallas_ops"}
+NOT_PORTED = {"ModelBundle", "AsyncPytreeCheckpointer", "pallas_ops"}
 PACKAGES = ["", "training", "inference", "data", "utils", "visualization", "models", "ops",
             "analysis"]
 

@@ -36,6 +36,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_adversarial import few_torch_threads  # noqa: F401  (autouse)
 from tests.torch_augment_draws import (
     distort_draws,
     near_tie,

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_adversarial import few_torch_threads  # noqa: F401  (autouse)
 from tests.test_torch_models import (
     CLASSES,
     SIZE,

@@ -32,6 +32,8 @@ differ by one bf16 ulp): the losses 1e-5 relative (measured: 9.3e-7), the
 rest as above.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -107,10 +109,14 @@ def _models(dtype=torch.float32):
     return seg, disc
 
 
+@functools.cache
 def _adv_port_run(factory, dtype=torch.float32, n=2, uncast=False):
     """``n`` steps of the port from the shared weights on the JAX draws.  With
     ``uncast`` the step's ``d_step`` and ``g_step`` get the float32 batches
-    of ``_source_target_inputs`` instead of ``prep``'s cast ones."""
+    of ``_source_target_inputs`` instead of ``prep``'s cast ones.  Run once
+    per module: the phase-2 step is one factory under both JAX names, so its
+    float32 run serves the JAX comparison and the cast comparison alike
+    (callers only read the result)."""
     seg, disc = _models(dtype)
     state = AdversarialState(TrainState(seg, adam(LR)), TrainState(disc, adam(LR)))
     step = factory(seg, disc, CLASSES, LAMBDA, aug_cfg=PCFG)
@@ -140,7 +146,7 @@ def test_adversarial_sequential_step_matches_jax():
                                                        LAMBDA, aug_cfg=JCFG)
     jstate = jax_state.AdversarialState(seg=_jax_train_state(seg_flat, LR),
                                         disc=_jax_train_state(disc_flat, LR))
-    step, ours = _adv_port_run(steps.make_adversarial_sequential_step)
+    step, ours = _adv_port_run(steps.make_adversarial_sequential_step, torch.float32)
     assert set(step.programs) == set(jstep.programs) == {"prep", "d_step", "g_step"}
     key = jax.random.key(KEY)
     runs = []

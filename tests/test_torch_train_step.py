@@ -52,6 +52,7 @@ import pytest
 import torch
 from flax.traverse_util import flatten_dict
 
+from tests.test_torch_adversarial import few_torch_threads  # noqa: F401  (autouse)
 from tests.test_torch_models import jax_variables, random_variables
 from tests.torch_augment_draws import augment_draws
 from uda_aerial_semantic_segmentation_research_tpu.models.unet import Unet as JaxUnet

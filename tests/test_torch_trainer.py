@@ -40,6 +40,7 @@ import torch
 from flax.traverse_util import flatten_dict
 from tensorboard.backend.event_processing import event_accumulator
 
+from tests.test_torch_adversarial import few_torch_threads  # noqa: F401  (autouse)
 from tests.test_torch_models import jax_variables, random_variables
 from uda_aerial_semantic_segmentation_research_tpu.config import Config as JaxConfig
 from uda_aerial_semantic_segmentation_research_tpu.data import dataset as jax_dataset

@@ -75,7 +75,7 @@ def create_unet(encoder_name: Optional[str] = None, encoder_weights: Optional[st
                 activation: Optional[str] = None, image_size: Optional[int] = None,
                 seed: int = 0, dtype: Optional[torch.dtype] = None, device=None,
                 fused_eval: bool = False, remat=False,
-                logits_dtype: torch.dtype = torch.float32) -> Unet:
+                logits_dtype: torch.dtype = torch.float32, fused_decoder="auto") -> Unet:
     """Build a seeded U-Net in eval mode on ``device`` (default ``cuda``).
 
     The arguments up to ``dtype`` sit where the JAX ``create_unet`` has
@@ -85,9 +85,9 @@ def create_unet(encoder_name: Optional[str] = None, encoder_weights: Optional[st
     accepted for the JAX signature; the port's initialization does not need
     a sample input.  ``dtype`` is the compute dtype (parameters stay
     float32); ``fused_eval`` routes the low-channel decoder blocks through
-    the ``conv_bn_relu`` kernel in eval mode; ``remat`` and ``logits_dtype``
-    are the ``Unet``'s (the JAX ``create_unet`` passes them through its
-    ``**unet_kwargs``).
+    the ``conv_bn_relu`` kernel in eval mode; ``remat``, ``logits_dtype`` and
+    ``fused_decoder`` are the ``Unet``'s (the JAX ``create_unet`` passes them
+    through its ``**unet_kwargs``).
     """
     del image_size
     dev = resolve_device(device)
@@ -96,7 +96,8 @@ def create_unet(encoder_name: Optional[str] = None, encoder_weights: Optional[st
                  classes=classes or Config.NUM_CLASSES,
                  in_channels=in_channels or Config.IN_CHANNELS,
                  activation=activation, dtype=dtype or Config.compute_dtype(),
-                 fused_eval=fused_eval, remat=remat, logits_dtype=logits_dtype)
+                 fused_eval=fused_eval, remat=remat, logits_dtype=logits_dtype,
+                 fused_decoder=fused_decoder)
     init_weights_(model, torch.Generator().manual_seed(seed))
     model = model.to(dev, memory_format=torch.channels_last).eval()
     if encoder_weights == "imagenet":
@@ -154,7 +155,7 @@ def create_model(model_name: Optional[str] = None, encoder_name: Optional[str] =
     local converted encoder checkpoint (``models.pretrained``); ``image_size``
     is accepted for the JAX signature (the port's initialization needs no
     sample input).  ``arch_kwargs`` go to the architecture's constructor:
-    ``remat``, ``logits_dtype``, ``fused_eval`` to the ``Unet`` (through
+    ``remat``, ``logits_dtype``, ``fused_eval``, ``fused_decoder`` to the ``Unet`` (through
     ``create_unet``), ``bins``, ``atrous_rates``, ``pyramid_channels``, ... to
     the others."""
     model_name = model_name or Config.MODEL_NAME

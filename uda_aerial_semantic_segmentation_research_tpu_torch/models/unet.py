@@ -2,9 +2,20 @@
 
 Counterpart of the JAX package's ``models/unet.py``: ResNet encoder ->
 five decoder blocks with skip connections (channels 256/128/64/32/16)
--> 3x3 segmentation head.  The decoder uses the naive upsample -> concat
--> conv schedule, which is what the JAX ``fused_decoder="auto"``
-resolves to off the TPU.
+-> 3x3 segmentation head.
+
+``fused_decoder`` picks the schedule of each decoder block's first conv,
+with the JAX ``Unet``'s values: ``False`` (naive: upsample -> concat ->
+conv3x3), ``True`` (every block fused: ``ops.upsample_conv.upsample2x_conv3x3``
+over the low-resolution input plus a conv3x3 of the skip, the two channel
+slices of the same conv1 kernel, so the 4x upsampled concatenation is never
+made), a tuple of block indices (0 = lowest resolution) to fuse only those,
+``"dilated"`` (every block through ``upsample2x_conv3x3_dilated``; as in JAX,
+inputs below 128 px keep the naive schedule), and ``"auto"``, the default,
+which resolves as the JAX rule does: ``"dilated"`` on the TPU and naive
+elsewhere -- so naive on CUDA and on the CPU.  The parameter tree is the
+same for every value (the one (3, 3, Cin, Cout) conv1 kernel), so the
+weight bridge and checkpoints do not change.
 
 ``fused_eval=True`` is the counterpart of the JAX pair
 ``packed_decoder=True, pallas_eval=True``: in eval mode, each decoder
@@ -55,13 +66,40 @@ from uda_aerial_semantic_segmentation_research_tpu_torch.ops.batch_norm import (
 from uda_aerial_semantic_segmentation_research_tpu_torch.ops.conv_bn_relu import (
     conv_bn_relu,
 )
+from uda_aerial_semantic_segmentation_research_tpu_torch.ops.upsample_conv import (
+    upsample2x_conv3x3,
+    upsample2x_conv3x3_dilated,
+)
 
 FUSED_MAX_FILTERS = 32
+DILATED_MIN_SIZE = 128    # "dilated" below this input size keeps the naive schedule (JAX)
 _KEEP = object()          # a ``clone`` option left as it is
+_UP_CONVS = {"phase": upsample2x_conv3x3, "dilated": upsample2x_conv3x3_dilated}
+
+
+def resolve_fused_decoder(fused_decoder):
+    """``Unet``'s ``fused_decoder`` -> ``False``, ``True``, a tuple of block
+    indices or ``"dilated"``; ``"auto"`` resolves by the JAX rule to the
+    naive schedule off the TPU, so to ``False`` for the port."""
+    if fused_decoder == "auto":
+        return False
+    if fused_decoder == "dilated" or isinstance(fused_decoder, bool):
+        return fused_decoder
+    if isinstance(fused_decoder, (tuple, list)) and all(
+            isinstance(i, int) and not isinstance(i, bool) for i in fused_decoder):
+        return tuple(fused_decoder)
+    raise ValueError(f"fused_decoder must be True, False, a tuple of block indices, "
+                     f"'dilated' or 'auto', got {fused_decoder!r}")
 
 
 class DecoderBlock(nn.Module):
-    """Upsample 2x -> concat skip -> (conv3x3 + BN + ReLU) x 2."""
+    """Upsample 2x -> concat skip -> (conv3x3 + BN + ReLU) x 2.
+
+    ``forward(..., fused=impl)`` with ``impl`` ``"phase"`` or ``"dilated"``
+    computes conv1 without the upsampled concatenation:
+    ``conv3x3(concat(up2(x), skip)) == up_conv(x, W_up) + conv3x3(skip, W_skip)``
+    with ``(W_up, W_skip)`` the input-channel slices of the same conv1
+    kernel, in the block's dtype (the JAX ``DecoderBlock(fused=True)``)."""
 
     def __init__(self, cin: int, cskip: int, filters: int,
                  dtype: torch.dtype = torch.bfloat16, fused_eval: bool = False):
@@ -85,11 +123,23 @@ class DecoderBlock(nn.Module):
         y2 = conv_bn_relu(y.permute(0, 2, 3, 1).contiguous(), k3, inv, shift)
         return y2.permute(0, 3, 1, 2)
 
-    def forward(self, x, skip: Optional[torch.Tensor] = None, remat_norms: bool = False):
-        y = F.interpolate(x.to(self.dtype), scale_factor=2, mode="nearest")
+    def _fused_conv1(self, x, skip, impl):
+        w1 = self.conv1.weight.to(self.dtype)
+        cup = x.shape[1]
+        y = _UP_CONVS[impl](x.to(self.dtype), w1[:, :cup])
         if skip is not None:
-            y = torch.cat([y, skip.to(self.dtype)], dim=1)
-        y = self.conv1(y)
+            y = y + F.conv2d(skip.to(self.dtype), w1[:, cup:], padding=1)
+        return y
+
+    def forward(self, x, skip: Optional[torch.Tensor] = None, remat_norms: bool = False,
+                fused=None):
+        if fused:
+            y = self._fused_conv1(x, skip, fused)
+        else:
+            y = F.interpolate(x.to(self.dtype), scale_factor=2, mode="nearest")
+            if skip is not None:
+                y = torch.cat([y, skip.to(self.dtype)], dim=1)
+            y = self.conv1(y)
         if (self.fused_eval and not self.training
                 and self.filters <= FUSED_MAX_FILTERS
                 and y.shape[2] % 2 == 0 and y.shape[3] % 2 == 0):
@@ -100,14 +150,16 @@ class DecoderBlock(nn.Module):
 
 class UnetDecoder(nn.Module):
     """Five decoder blocks ``block0..block4`` over an NCHW pyramid.
-    ``remat``: ``False``, ``True`` (each block recomputed) or ``"convs"``."""
+    ``remat``: ``False``, ``True`` (each block recomputed) or ``"convs"``;
+    ``fused``: a resolved ``fused_decoder`` (``resolve_fused_decoder``)."""
 
     def __init__(self, encoder_channels: Sequence[int],
                  decoder_channels: Sequence[int] = (256, 128, 64, 32, 16),
                  dtype: torch.dtype = torch.bfloat16, fused_eval: bool = False,
-                 remat=False):
+                 remat=False, fused=False):
         super().__init__()
         self.remat = remat
+        self.fused = fused
         # skips: /16, /8, /4, /2, none (features[1:-1] reversed)
         skip_ch = list(encoder_channels[1:-1])[::-1] + [0]
         cin = encoder_channels[-1]
@@ -116,15 +168,24 @@ class UnetDecoder(nn.Module):
             cin = ch
         self.n_blocks = len(decoder_channels)
 
+    def block_schedules(self, size: int):
+        """Per block the conv1 schedule at input size ``size``: ``None``
+        (naive), ``"phase"`` or ``"dilated"`` (the JAX ``UnetDecoder``'s rule)."""
+        impl = "dilated" if self.fused == "dilated" else "phase"
+        fused = False if impl == "dilated" and size < DILATED_MIN_SIZE else self.fused
+        return [impl if (i in fused if isinstance(fused, tuple) else bool(fused)) else None
+                for i in range(self.n_blocks)]
+
     def forward(self, features):
         skips = list(features[1:-1])[::-1] + [None]
         x = features[-1]
+        schedules = self.block_schedules(features[0].shape[2])
         for i, skip in zip(range(self.n_blocks), skips):
             block = getattr(self, f"block{i}")
             if self.remat and self.remat != "convs":
-                x = checkpoint(block, x, skip)
+                x = checkpoint(block, x, skip, False, schedules[i])
             else:
-                x = block(x, skip, self.remat == "convs")
+                x = block(x, skip, self.remat == "convs", schedules[i])
         return x
 
 
@@ -150,7 +211,8 @@ class Unet(nn.Module):
                  decoder_channels: Sequence[int] = (256, 128, 64, 32, 16),
                  activation: Optional[str] = None,
                  dtype: torch.dtype = torch.bfloat16, fused_eval: bool = False,
-                 remat=False, logits_dtype: torch.dtype = torch.float32):
+                 remat=False, logits_dtype: torch.dtype = torch.float32,
+                 fused_decoder="auto"):
         super().__init__()
         if activation not in (None, "softmax", "sigmoid"):
             raise ValueError(f"unknown activation {activation!r}")
@@ -161,8 +223,10 @@ class Unet(nn.Module):
         self.logits_dtype = logits_dtype
         enc_remat, dec_remat = resolve_remat(remat)
         self.encoder = build_encoder(encoder_name, in_channels, dtype, remat=enc_remat)
+        self.fused_decoder = fused_decoder
         self.decoder = UnetDecoder(encoder_out_channels(encoder_name),
-                                   decoder_channels, dtype, fused_eval, remat=dec_remat)
+                                   decoder_channels, dtype, fused_eval, remat=dec_remat,
+                                   fused=resolve_fused_decoder(fused_decoder))
         self.segmentation_head = conv(decoder_channels[-1], classes, 3, bias=True)
 
     def clone(self, *, remat=_KEEP, logits_dtype=_KEEP) -> "Unet":

@@ -84,5 +84,11 @@ def build_libraries(names) -> dict[str, Path]:
 
 @functools.cache
 def load_library(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu`` once per process."""
+    """Build (if needed) and load ``csrc/<name>.cu`` once per process; never
+    during CUDA graph capture."""
+    from uda_aerial_semantic_segmentation_research_tpu_torch.utils.device import (
+        refuse_under_capture,
+    )
+
+    refuse_under_capture(f"building or loading the {name} library")
     return ctypes.CDLL(str(build_libraries([name])[name]))

@@ -15,6 +15,17 @@ rows folded in a fixed order by the last block, no float atomics).
 ``plan`` sizes the grid to the input; the partial rows and the ticket
 counter live in a scratch buffer kept per device and stream.
 
+Under CUDA graph capture the launch goes to the capture stream (the current
+one) and is recorded like any other.  What is set up once and then cached
+-- the library, ``_device_limits``' attribute and occupancy queries, a
+stream's scratch -- raises if it would first happen during a capture: a
+scratch allocated there would live in the graph's private pool, and one
+grown there would free the buffer that launches captured before still
+use.  Run the work once on the capture stream first.  A scratch that
+grows outside capture keeps its predecessor alive, so that graphs
+captured over the old one stay valid; graphs captured on one stream share
+its scratch and must replay one after another.
+
 Each function launches the kernel for a CUDA tensor and raises on what the
 kernel does not take; for a CPU tensor it computes the plain PyTorch version
 (``channel_sums_reference`` / ``channel_dual_sums_reference``).  The
@@ -29,6 +40,9 @@ from typing import NamedTuple
 
 import torch
 
+from uda_aerial_semantic_segmentation_research_tpu_torch.utils.device import (
+    refuse_under_capture,
+)
 from uda_aerial_semantic_segmentation_research_tpu_torch.utils.dtypes import to_f32
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -115,7 +129,8 @@ def _library():
 def _device_limits(index: int, a_bf16: int, b_kind: int) -> tuple[tuple[int, ...], int]:
     """(clusters of each of ``CLUSTER_SIZES`` that the bulk kernel runs at
     once, SMs) on the current device, ``index``; also sets the kernel's
-    shared-memory limit there."""
+    shared-memory limit there.  Never during CUDA graph capture."""
+    refuse_under_capture("channel_sums' attribute and occupancy queries")
     sms = torch.cuda.get_device_properties(index).multi_processor_count
     counts = []
     for k in CLUSTER_SIZES:
@@ -133,12 +148,17 @@ def _device_limits(index: int, a_bf16: int, b_kind: int) -> tuple[tuple[int, ...
 # counter, zeroed once and re-armed by every launch) + the partial rows.
 # One per stream, so two streams never share a counter.
 _scratch: dict[tuple[int, int], torch.Tensor] = {}
+# scratch buffers replaced by larger ones: kept, as captured graphs may use them
+_retired: list[torch.Tensor] = []
 
 
 def _scratch_for(device, stream, floats):
     key = (device.index, stream)
     buf = _scratch.get(key)
     if buf is None or buf.numel() < floats:
+        refuse_under_capture("allocating or growing channel_sums' scratch of a stream")
+        if buf is not None:
+            _retired.append(buf)
         buf = _scratch[key] = torch.zeros(max(floats, 1 << 16), dtype=torch.float32,
                                           device=device)
     return buf

@@ -13,6 +13,12 @@ kernels pad the post-ReLU activation with exact zeros.
 the kernel does not take; for a CPU tensor it computes the plain PyTorch
 version ``conv_bn_relu_reference``.  ``conv_bn_relu.launches`` counts the
 kernel launches.
+
+Under CUDA graph capture the launch goes to the capture stream (the current
+one); the tensor maps are encoded on the host into the kernel's parameters,
+which the graph keeps.  What is set up once and cached -- the library and
+``_bf16_blocks``' attribute and occupancy query for a shape -- raises if it
+would first happen during a capture; run the shape once before.
 """
 
 from __future__ import annotations
@@ -22,6 +28,10 @@ import functools
 
 import torch
 import torch.nn.functional as F
+
+from uda_aerial_semantic_segmentation_research_tpu_torch.utils.device import (
+    refuse_under_capture,
+)
 
 MAX_CHANNELS = 32
 _GRID_LIMIT = 65535
@@ -160,7 +170,9 @@ def conv_bn_relu(x, k3, scale=None, shift=None, *, moments=False):
 @functools.lru_cache(maxsize=64)
 def _bf16_blocks(lib, device_index, b, h, w, cin, cout):
     """Persistent blocks of a bfloat16 launch on this device (the rows of its
-    moments scratch); the launch uses exactly this grid."""
+    moments scratch); the launch uses exactly this grid.  Never during CUDA
+    graph capture."""
+    refuse_under_capture("conv_bn_relu's attribute and occupancy query")
     n = lib.conv_bn_relu_bf16_num_blocks(b, h, w, cin, cout)
     if n <= 0:
         raise RuntimeError(f"conv_bn_relu cannot size its grid: CUDA error {-n}")

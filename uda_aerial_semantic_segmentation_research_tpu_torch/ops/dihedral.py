@@ -22,6 +22,11 @@ does not take; for
 CPU tensors it computes the plain PyTorch version
 ``dihedral_normalize_reference``.  ``dihedral_normalize.launches`` counts
 the kernel launches.
+
+Under CUDA graph capture the launch goes to the capture stream (the current
+one).  What is set up once and cached -- the library, ``_device_sms``'
+shared-memory attribute, ``imagenet_stats``' device constants -- raises if
+it would first happen during a capture; run the work once before.
 """
 
 from __future__ import annotations
@@ -33,6 +38,9 @@ from typing import NamedTuple
 import torch
 
 from uda_aerial_semantic_segmentation_research_tpu_torch.config import Config
+from uda_aerial_semantic_segmentation_research_tpu_torch.utils.device import (
+    refuse_under_capture,
+)
 
 MAX_CHANNELS = 8
 _MASK_KINDS = {torch.uint8: 0, torch.int32: 1, torch.int64: 2}
@@ -69,7 +77,12 @@ def imagenet_stats(device: torch.device):
     """(mean, std) of the ImageNet normalization as float32 (C,) tensors on
     ``device``, made there by fills (no copy from the host, so no wait on
     it) once per device, as normal tensors even when first asked for under
-    ``inference_mode``; callers only read them."""
+    ``inference_mode``; callers only read them.  A CUDA device's pair is
+    never first made during CUDA graph capture (it would live in the graph's
+    pool)."""
+    if device.type == "cuda":
+        refuse_under_capture("making imagenet_stats' device constants")
+
     def const(values):
         t = torch.empty(len(values), dtype=torch.float32, device=device)
         for i, v in enumerate(values):
@@ -180,7 +193,9 @@ def _library():
 @functools.cache
 def _device_sms(index: int) -> int:
     """SMs of the current device, ``index``; also lets the bulk kernel use the
-    device's shared memory there, which every bulk launch needs."""
+    device's shared memory there, which every bulk launch needs.  Never
+    during CUDA graph capture."""
+    refuse_under_capture("dihedral_normalize's shared-memory attribute")
     sms = _library().dihedral_normalize_prepare()
     if sms < 0:
         raise RuntimeError(f"dihedral_normalize cannot prepare its kernel on cuda:{index} "

@@ -20,6 +20,11 @@ CUDA logits both passes launch their kernel or raise; for CPU logits they
 compute the plain PyTorch versions (``fused_cross_entropy_reference`` and
 ``fused_cross_entropy_grad_reference``).  ``fused_cross_entropy.launches``
 counts the kernel launches, forward and backward alike.
+
+Under CUDA graph capture both passes launch on the capture stream (the
+current one); their only host-side set-up is loading the library, which
+raises if it would first happen during a capture.  The forward's partial
+sums are allocated per call, in the graph's pool when captured.
 """
 
 from __future__ import annotations

@@ -245,8 +245,17 @@ class FineTuningLoss:
 
     def rampup(self, epoch, device=None) -> torch.Tensor:
         """Linear 0 -> 1 over ``rampup_length`` epochs, a float32 tensor on
-        ``device``: ``epoch`` (a number) is divided in float32 on the host and
-        the result filled on the device (no host-to-device copy)."""
+        ``device``.  A number ``epoch`` is divided in float32 on the host and
+        the result filled on the device (no host-to-device copy).  A tensor
+        ``epoch`` (0-d, e.g. one step's slice of ``make_scan_driver``'s
+        ``(S,)`` epochs) is divided on its device by a device-resident
+        float32 divisor -- the same IEEE float32 division, so the same bits
+        -- and clipped there, with no read-back."""
+        if isinstance(epoch, torch.Tensor):
+            e = epoch.to(device=device or epoch.device, dtype=torch.float32)
+            length = torch.full((), float(self.rampup_length), dtype=torch.float32,
+                                device=e.device)
+            return (e / length).clamp(0.0, 1.0)
         r = np.clip(np.float32(epoch) / np.float32(self.rampup_length), 0.0, 1.0)
         return torch.full((), float(r), dtype=torch.float32, device=device)
 

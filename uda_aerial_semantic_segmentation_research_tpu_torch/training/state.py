@@ -11,6 +11,15 @@ Adam is ``fused`` (its kernel skips every write when the ``found_inf``
 tensor it is handed is 1, and the step count's +1 is taken back), and its
 ``step`` counter is a device tensor that advances by ``finite``.  Nothing is
 read back to the host.
+
+A state built with ``capturable=True`` can be captured into a CUDA graph
+(``training.steps.make_scan_driver``): its Adam is ``torch.optim.Adam``'s
+``capturable`` one (foreach or, with ``skip_nonfinite``, fused), which keeps
+its step count on the device and computes the bias corrections there in
+float32 instead of on the host in float64, and its ``step`` counter is a
+device tensor advanced on the device.  Such a state lives on the card.  The
+default stays ``capturable=False``, whose updates are the ones the port has
+always made.
 """
 
 from __future__ import annotations
@@ -28,9 +37,9 @@ class Adam:
     learning_rate: float
     clip_norm: Optional[float] = None
 
-    def init(self, params, fused: bool = False) -> torch.optim.Adam:
+    def init(self, params, fused: bool = False, capturable: bool = False) -> torch.optim.Adam:
         return torch.optim.Adam(params, lr=self.learning_rate, betas=(0.9, 0.999),
-                                eps=1e-8, fused=fused or None)
+                                eps=1e-8, fused=fused or None, capturable=capturable)
 
 
 def adam(learning_rate: float, clip_norm: Optional[float] = None) -> Adam:
@@ -61,16 +70,22 @@ def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
 class TrainState:
     """One model's optimization state: ``model``, ``optimizer``, ``step``
     and the optional ``clip_norm`` of its ``adam`` recipe.  ``step`` is an
-    int, or with ``skip_nonfinite`` an int64 tensor on the model's device."""
+    int, or with ``skip_nonfinite`` or ``capturable`` an int64 tensor on the
+    model's device."""
 
-    def __init__(self, model: torch.nn.Module, tx: Adam, skip_nonfinite: bool = False):
+    def __init__(self, model: torch.nn.Module, tx: Adam, skip_nonfinite: bool = False,
+                 capturable: bool = False):
+        device = next(model.parameters()).device
+        if capturable and device.type != "cuda":
+            raise ValueError(f"a capturable state lives on the card, not on {device}")
         self.model = model
         self.skip_nonfinite = skip_nonfinite
-        self.optimizer = tx.init(model.parameters(), fused=skip_nonfinite)
+        self.capturable = capturable
+        self.optimizer = tx.init(model.parameters(), fused=skip_nonfinite,
+                                 capturable=capturable)
         self.clip_norm = tx.clip_norm
-        self.step = (torch.zeros((), dtype=torch.int64,
-                                 device=next(model.parameters()).device)
-                     if skip_nonfinite else 0)
+        self.step = (torch.zeros((), dtype=torch.int64, device=device)
+                     if skip_nonfinite or capturable else 0)
 
     def apply_gradients(self, finite: Optional[torch.Tensor] = None) -> "TrainState":
         """One optimizer update from the gradients that ``backward`` left
@@ -86,7 +101,10 @@ class TrainState:
             if self.skip_nonfinite:
                 raise ValueError("a skip_nonfinite state needs the finite flag")
             self.optimizer.step()
-            self.step += 1
+            if isinstance(self.step, torch.Tensor):
+                self.step.add_(1)
+            else:
+                self.step += 1
             return self
         if not self.skip_nonfinite:
             raise ValueError("only a skip_nonfinite state can skip an update")

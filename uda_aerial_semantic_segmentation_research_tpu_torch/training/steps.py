@@ -8,8 +8,10 @@ the phase-2 adversarial step (``make_adversarial_train_step``, with
 unsupervised step (``make_unsupervised_train_step``) and its
 memory-decomposed twin (``make_unsupervised_sequential_step``), and the GRL
 stack's steps (``make_grl_sequential_step``, with ``make_grl_train_step``
-its alias, and ``make_grl_eval_step``).  Each factory closes over the
-static pieces and returns an eager function.
+its alias, and ``make_grl_eval_step``), and the scan driver
+(``make_scan_driver``: S steps in one call, a CUDA graph of them on the
+card).  Each factory closes over the static pieces and returns an eager
+function.
 Properties shared by the steps:
 
 - raw uint8 batches go straight to the device; dequantization,
@@ -23,7 +25,9 @@ Properties shared by the steps:
 from __future__ import annotations
 
 import copy
+import time
 
+import numpy as np
 import torch
 import torch.utils.checkpoint
 
@@ -138,6 +142,195 @@ def make_supervised_train_step(model: torch.nn.Module, num_classes: int,
         return state, metrics
 
     return step
+
+
+class _Captured:
+    """One CUDA graph of ``unroll`` steps and what it reads and writes: the
+    static per-step inputs (``(unroll, ...)`` each), the per-step metrics
+    (in the graph's pool, overwritten by every replay), and the state and
+    generator it was captured over (kept, so that the key's ids stay theirs)."""
+
+    def __init__(self, graph, inputs, metrics, state, generator, warmup_s, capture_s):
+        self.graph, self.inputs, self.metrics = graph, inputs, metrics
+        self.state, self.generator = state, generator
+        self.warmup_s, self.capture_s = warmup_s, capture_s
+
+
+def _train_states(state):
+    """The ``TrainState``s of ``state`` (a ``TrainState`` or an
+    ``AdversarialState``)."""
+    if hasattr(state, "optimizer"):
+        return [state]
+    if hasattr(state, "seg") and hasattr(state, "disc"):
+        return [state.seg, state.disc]
+    raise TypeError(f"make_scan_driver drives a TrainState or an AdversarialState, not "
+                    f"{type(state).__name__}")
+
+
+def _state_tensors(states):
+    """Every tensor that a train step updates in place, once each: parameters,
+    buffers, Adam state and device step counters."""
+    found = {}
+    for st in states:
+        tensors = [*st.model.parameters(), *st.model.buffers()]
+        for per_param in st.optimizer.state.values():
+            tensors += [v for v in per_param.values() if isinstance(v, torch.Tensor)]
+        if isinstance(st.step, torch.Tensor):
+            tensors.append(st.step)
+        for t in tensors:
+            found.setdefault(id(t), t)
+    return list(found.values())
+
+
+def _stacked_inputs(batches, device):
+    """The batch arguments as tensors on ``device`` and their common leading
+    length S.  Each must be an array or tensor with a leading ``(S,)`` axis:
+    a per-step scalar is an ``(S,)`` array, never a Python number."""
+    if not batches:
+        raise ValueError("make_scan_driver's call needs at least one stacked batch")
+    stacked = []
+    for i, b in enumerate(batches):
+        if not isinstance(b, (torch.Tensor, np.ndarray)) or b.ndim == 0:
+            raise TypeError(f"batch argument {i} is {type(b).__name__}: every argument after "
+                            "the generator needs a leading (S,) axis (a per-step scalar is "
+                            "an (S,) array)")
+        stacked.append(torch.as_tensor(b, device=device))
+    lengths = {t.shape[0] for t in stacked}
+    if len(lengths) != 1:
+        raise ValueError(f"the batch arguments' leading axes differ: "
+                         f"{[tuple(t.shape) for t in stacked]}")
+    return stacked, lengths.pop()
+
+
+def _capture(step, unroll, state, generator, stacked, stream):
+    """Warm up ``unroll`` steps on ``stream``, put the state and the generator
+    back as they were, and capture the ``unroll`` steps into a CUDA graph on
+    the same stream."""
+    states = _train_states(state)
+    device = stacked[0].device
+    inputs = [torch.empty((unroll, *b.shape[1:]), dtype=b.dtype, device=device)
+              for b in stacked]
+    t0 = time.perf_counter()
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(stream):
+        with torch.no_grad():
+            for buf, b in zip(inputs, stacked):
+                buf.copy_(b[:unroll])
+            before = _state_tensors(states)
+            kept = [t.clone() for t in before]
+        gen_state = None if generator is None else generator.get_state()
+        # the warm-up: Adam's state, channel_sums' scratch for this stream,
+        # cuDNN plans, the kernels' libraries and cached device constants
+        for j in range(unroll):
+            step(state, generator, *(buf[j] for buf in inputs))
+        with torch.no_grad():
+            for t, k in zip(before, kept):
+                t.copy_(k)
+            seen = {id(t) for t in before}
+            # Adam state made by the warm-up: a fresh one is zeros
+            made = [t for t in _state_tensors(states) if id(t) not in seen]
+            if made:
+                torch._foreach_zero_(made)
+        if generator is not None:
+            generator.set_state(gen_state)
+        del kept
+    stream.synchronize()
+    warmup_s = time.perf_counter() - t0
+
+    graph = torch.cuda.CUDAGraph()
+    if generator is not None:
+        graph.register_generator_state(generator)
+    t0 = time.perf_counter()
+    with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+        metrics = [step(state, generator, *(buf[j] for buf in inputs))[1]
+                   for j in range(unroll)]
+    return _Captured(graph, inputs, metrics, state, generator, warmup_s,
+                     time.perf_counter() - t0)
+
+
+def make_scan_driver(step, unroll: int = 1):
+    """``multi(state, generator, *batches) -> (state, metrics)``: S calls of a
+    train step ``step(state, generator, *per_step_batches)`` in one call.
+    Counterpart of the JAX ``make_scan_driver`` (``jax.lax.scan`` of the step
+    in one compiled program).
+
+    Every batch argument has a leading ``(S,)`` axis, and step ``i`` gets its
+    ``i``-th slice; per-step scalars (phase 3's ``epoch``, the GRL step's
+    ``alpha``) are ``(S,)`` arrays, so that step gets a 0-d tensor.  The
+    metrics come back stacked, ``(S, ...)`` per entry.  ``state`` (a
+    ``TrainState`` or ``AdversarialState``) advances by S steps in place and
+    its step counter reads S more.  Numpy batches are moved to the state's
+    device first, in one copy each.
+
+    On the CPU (the caller put the model there) the S calls run one after
+    another.  On the card the steps run as a CUDA graph of ``unroll`` steps
+    (JAX's ``unroll``), replayed ``S / unroll`` times; before each replay the
+    next slices of the stacked batches are copied on the device into the
+    graph's static inputs, and after it the metrics are copied out (the
+    returned metrics are copies, never views of the graph's buffers).  The
+    graphs are kept per scan driver in ``multi.graphs``, keyed by the per-step
+    shapes and dtypes, the device, the state and the generator (the step and
+    ``unroll`` are the scan driver's).  A new key is captured on its first call:
+    ``unroll`` steps run eagerly on a capture stream of the scan driver's own
+    (which builds Adam's state, ``channel_sums``' scratch for that stream,
+    cuDNN plans and cached constants), then the state -- parameters,
+    buffers, Adam's moments and counts, step counters, in the same storages
+    -- and the generator are put back as they were, and the ``unroll``
+    steps are captured.  So the first call's S steps are replays too, and
+    leave the state that S eager steps leave.  The generator (a CUDA
+    ``torch.Generator``; a CPU one raises) is registered with each graph, so
+    every replay draws what the eager steps would.  The card needs states
+    built with ``capturable=True`` (``TrainState``); a capture that fails
+    raises, and nothing falls back to eager calls.  Graphs of one scan driver
+    share its capture stream's ``channel_sums`` scratch, so they replay one
+    after another, on the caller's current stream.
+    """
+    if not isinstance(unroll, int) or unroll < 1:
+        raise ValueError(f"unroll must be a positive int, got {unroll!r}")
+    graphs: dict = {}
+    streams: dict = {}
+
+    def multi(state, generator, *batches):
+        states = _train_states(state)
+        device = model_device(states[0].model)
+        stacked, s = _stacked_inputs(batches, device)
+        if device.type != "cuda":
+            per_step = []
+            for i in range(s):
+                state, metrics = step(state, generator, *(b[i] for b in stacked))
+                per_step.append(metrics)
+            return state, {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
+
+        if s % unroll:
+            raise ValueError(f"S={s} steps are not a whole number of unroll={unroll} graphs")
+        if generator is not None and generator.device.type != "cuda":
+            raise ValueError(f"the steps run on {device}: the generator must be a CUDA "
+                             f"generator, not one on {generator.device}")
+        if not all(st.capturable for st in states):
+            raise ValueError("a CUDA graph of the steps needs states built with "
+                             "TrainState(..., capturable=True)")
+        key = (tuple((tuple(b.shape[1:]), b.dtype) for b in stacked), device, id(state),
+               id(generator))
+        entry = graphs.get(key)
+        if entry is None:
+            stream = streams.get(device)
+            if stream is None:
+                stream = streams[device] = torch.cuda.Stream(device)
+            entry = graphs[key] = _capture(step, unroll, state, generator, stacked, stream)
+        out = {k: torch.empty((s, *v.shape), dtype=v.dtype, device=device)
+               for k, v in entry.metrics[0].items()}
+        with torch.no_grad():
+            for r in range(s // unroll):
+                for buf, b in zip(entry.inputs, stacked):
+                    buf.copy_(b[r * unroll:(r + 1) * unroll])
+                entry.graph.replay()
+                for j, metrics in enumerate(entry.metrics):
+                    for k, v in metrics.items():
+                        out[k][r * unroll + j].copy_(v)
+        return state, out
+
+    multi.graphs = graphs
+    return multi
 
 
 def make_eval_step(model: torch.nn.Module, num_classes: int, class_weights=None,
@@ -344,11 +537,15 @@ def chunked_consistency(cons_fn, rows: int = 32):
     the chunk losses sum to the whole loss to float reassociation.  The
     region holds no BatchNorm, so recomputing it is exact.  Without chunks
     (H <= ``rows``, or H not a multiple of it) the whole loss is one
-    checkpointed region.  Counterpart of the JAX ``_chunked_consistency``.
+    checkpointed region.  The KL draws nothing, so the recompute keeps no
+    RNG state (``preserve_rng_state=False``: reading the CUDA RNG state is
+    not allowed inside a captured backward).  Counterpart of the JAX
+    ``_chunked_consistency``.
     """
 
     def run(a, b):
-        return torch.utils.checkpoint.checkpoint(cons_fn, a, b, use_reentrant=False)
+        return torch.utils.checkpoint.checkpoint(cons_fn, a, b, use_reentrant=False,
+                                                 preserve_rng_state=False)
 
     def f(z1, z2):
         h = z1.shape[1]

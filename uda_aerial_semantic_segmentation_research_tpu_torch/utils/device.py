@@ -24,3 +24,18 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+def refuse_under_capture(what: str) -> None:
+    """Raise when the current CUDA stream is capturing a graph.
+
+    A kernel wrapper calls this where it does host-side set-up that it keeps
+    across calls: building or loading a library, a function-attribute or
+    occupancy query, a device constant or a scratch buffer held in a
+    module-level cache.  Under capture none of that is recorded, and a
+    buffer made there would live in the graph's private pool.  Run the step
+    once on the capture stream before capturing it (``make_scan_driver``'s
+    warm-up does)."""
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{what} must not happen during CUDA graph capture: run the "
+                           "work once on the capture stream before capturing it")
