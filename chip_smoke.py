@@ -9,6 +9,7 @@
         # only: dihedral_normalize against the one built from an older
         # dihedral_normalize.cu, at the train step's shape, in turns
     python3 chip_smoke.py --only-scan      # only: 3c and phases 15-16
+    python3 chip_smoke.py --only-dist      # only: phase 17
 
 1. prints the card (``nvidia-smi`` name and power limit);
 2. builds the port's four CUDA libraries from ``csrc/`` with nvcc, all
@@ -270,6 +271,43 @@
    bf16), captured on a side stream after one launch there, replayed three
    times, bit for bit against the eager launch: a ``capture_check`` line
    and each ``kernels`` entry's ``capture_check``.
+17. (after 15-16, in a spawned process of its own, which spawns the ranks of
+   17b) data parallelism across processes (``parallel.distributed``).
+   17a: the resnet34 U-Net's phase-1 step (23 classes, 512 px, bf16, B=32,
+   WEAK, fused CE), 3 steps through the data-parallel path under an NCCL
+   group of one process against the same 3 steps without a group: every
+   parameter, gradient, BatchNorm buffer and metric bit for bit, launches
+   46 / 46 / 1 / 2 a step; the collectives a step by kind and bytes; the
+   step's p50 with and without the group, and a ``torch.profiler`` trace
+   (CPU activity) of one step of each, with the all-reduce ops' host time;
+   ``make_scan_driver`` at S=2 over the
+   grouped step (the collectives captured with it), bit for bit against two
+   eager runs where those are.  Then, outside the counted run,
+   ``augment_batch`` with phase 3's STRONG config as a rank runs it (the
+   global batch's draws on its rows, no compaction) against the compacted
+   stages at the same row count, for 2 and 4 ranks of a global 32 and 128.
+   17b: two ranks sharing the card through
+   gloo (``local_device_ids=[0]``), each with its 16 rows of a global B=32:
+   the phase-1 step in float32 with TF32 off against one process at B=32
+   with the same global draws, in two forms: the plain step, and a witness
+   that repeats the ranks' arithmetic (the BatchNorm sums of the two halves
+   added, as the all-reduce adds the ranks', and every convolution run on
+   each half, its weight gradient the sum of the halves') -- loss 1e-5
+   relative, BatchNorm buffers 1e-5, clipped gradients 1e-4 of each
+   tensor's largest against the witness and 1e-2 against the plain step,
+   parameters by the Adam-sign rule; a line of gradient gaps, with the split
+   sums alone and cuDNN's deterministic algorithms beside, comes before the
+   checks -- and in bf16 (finite, loss 1e-2 relative); one step each
+   of phase 2 and of phase 3's production point (sequential, encoder remat,
+   bf16 carry: the collectives inside the recompute), finite, BatchNorm
+   buffers identical across the ranks; the per-rank census of every step;
+   ``run_pipeline`` over the two ranks at the CLI defaults (256 px, B=8 a
+   rank, in-memory tiles through ``pipeline._build_loaders``' even shards),
+   one epoch a phase of 2 steps: both ranks end in FINE_TUNING with the same
+   weights bit for bit and the same summary, and only rank 0 wrote
+   checkpoints, metadata and events.  A rank that fails or does not finish
+   in time fails the run.  The two-rank times are printed as correctness
+   runs: two ranks share one card and gloo stages through the host.
 The script's own wall time is printed before the ``kernels`` line.
 
 Any failed check raises and the script exits non-zero; without a CUDA
@@ -2687,9 +2725,10 @@ def update_snapshot(models) -> dict:
     return out
 
 
-def hold_update(label, ref, other, lr, grad_tol) -> dict:
+def hold_update(label, ref, other, lr, grad_tol, buffer_tol=None) -> dict:
     """``other``, one update from the same state on the same draws as
-    ``ref``: every BatchNorm buffer bit-identical; every clipped gradient
+    ``ref``: every BatchNorm buffer bit-identical (within ``buffer_tol``
+    where given); every clipped gradient
     within ``grad_tol`` of its tensor's largest entry (a tensor whose
     largest is below 1e-6 of the network's, such as a conv bias in front
     of a BatchNorm, against that 1e-6); the parameters by the
@@ -2701,9 +2740,11 @@ def hold_update(label, ref, other, lr, grad_tol) -> dict:
     largest (in a tensor whose largest is at least 1e-6 of the network's:
     a conv bias in front of a BatchNorm has none) within ``0.02 * lr`` plus
     one ulp: their sign is not noise."""
-    moved = [k for k in ref if "/buffer/" in k and not torch.equal(ref[k], other[k])]
-    if moved:
-        raise AssertionError(f"{label}: BatchNorm buffers differ: {moved[:5]}")
+    buffers = [k for k in ref if "/buffer/" in k]
+    buffer_err = max((other[k] - ref[k]).abs().max().item() for k in buffers)
+    moved = [k for k in buffers if not torch.equal(ref[k], other[k])]
+    if moved if buffer_tol is None else not buffer_err <= buffer_tol:
+        raise AssertionError(f"{label}: BatchNorm buffers differ by {buffer_err}: {moved[:5]}")
     params = [k for k in ref if "/param/" in k]
     grads = {k: ref[k.replace("/param/", "/grad/")] for k in params}
     largest = max(g.abs().max().item() for g in grads.values())
@@ -2731,13 +2772,14 @@ def hold_update(label, ref, other, lr, grad_tol) -> dict:
     if worst > 2.5 or worst_significant > 0.02:
         raise AssertionError(f"{label}: parameters off by {worst} lr (significant entries "
                              f"{worst_significant} lr)")
-    return {"buffers_bit_identical": sum("/buffer/" in k for k in ref),
+    return {"buffers_bit_identical": len(buffers) - len(moved), "buffer_max_abs_err": buffer_err,
             "grad_max_err_of_largest": grad_err, "grad_worst": grad_worst,
             "param_max_excess_lr": worst, "significant_param_max_excess_lr": worst_significant,
             "significant_share": significant / total,
             "tolerance": f"gradients {grad_tol} of each tensor's largest; parameters: every "
                          "entry 2.5 lr, entries with |g| >= 10% of their tensor's largest "
-                         "0.02 lr, each plus one float32 ulp; buffers bit-identical"}
+                         "0.02 lr, each plus one float32 ulp; buffers "
+                         + ("bit-identical" if buffer_tol is None else f"within {buffer_tol}")}
 
 
 def hold_metrics(label, ref, other, keys, rtol=1e-6) -> dict:
@@ -3904,6 +3946,623 @@ def scan_phase(card) -> dict:
         return pool.apply(_scan_child, (card,))
 
 
+# ---------------------------------------------------------------------------
+# phase 17: data parallelism across processes (parallel.distributed)
+# ---------------------------------------------------------------------------
+DIST_STEPS, DIST_RANKS, DIST_TIMEOUT_S = 3, 2, 600.0
+DIST_LR = 1e-4
+DIST_PIPE_TILE, DIST_PIPE_BATCH, DIST_PIPE_TILES, DIST_PIPE_TARGETS = 256, 8, 40, 32
+# launches a step of each path (per rank in 17b): phase 1 with fused CE, phase 2,
+# phase 3's production point
+DIST_EXPECTED = {"channel_sums": 46, "channel_dual_sums": 46, "dihedral_normalize": 1,
+                 "fused_cross_entropy": 2, "conv_bn_relu": 0}
+DIST_PHASE2_EXPECTED = {**DIST_EXPECTED, "channel_sums": 52, "channel_dual_sums": 52,
+                        "dihedral_normalize": 2, "fused_cross_entropy": 0}
+DIST_PHASE3_EXPECTED = {**DIST_EXPECTED, "channel_sums": 211, "channel_dual_sums": 95,
+                        "dihedral_normalize": 2, "fused_cross_entropy": 0}
+# what the spawned ranks of 17b take from the process that spawns them
+DIST_SETTINGS = ("CLASSES", "TRAIN_BATCH", "DIST_EXPECTED",
+                 "DIST_PHASE2_EXPECTED", "DIST_PHASE3_EXPECTED", "DIST_PIPE_TILE",
+                 "DIST_PIPE_BATCH", "DIST_TIMEOUT_S")
+
+
+def host_snapshot(models, metrics) -> dict:
+    """``update_snapshot`` of ``models`` and every metric, on the host."""
+    return {k: v.cpu() for k, v in update_snapshot(models).items()} | {
+        f"metric/{k}": v.detach().cpu() for k, v in metrics.items()}
+
+
+def digest(tensors: dict) -> dict:
+    """crc32 of each tensor's bytes."""
+    import zlib
+
+    return {k: zlib.crc32(v.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+                          .numpy().tobytes()) for k, v in tensors.items()}
+
+
+def dist_phase1(dtype, gen_seed, capturable=False):
+    """A fresh resnet34 U-Net (seeded) and its phase-1 step (WEAK, fused CE)."""
+    from uda_aerial_semantic_segmentation_research_tpu_torch.models import create_unet
+    from uda_aerial_semantic_segmentation_research_tpu_torch.training.state import (
+        TrainState,
+        adam,
+    )
+    from uda_aerial_semantic_segmentation_research_tpu_torch.training.steps import (
+        make_supervised_train_step,
+    )
+
+    seg = create_unet("resnet34", classes=CLASSES, seed=SEED, dtype=dtype, device="cuda")
+    state = TrainState(seg, adam(DIST_LR), capturable=capturable)
+    step = make_supervised_train_step(seg, CLASSES, fused_ce=True)
+    return seg, state, step, torch.Generator(device="cuda").manual_seed(gen_seed)
+
+
+def collective_census(dist, steps: int) -> dict:
+    """Collectives a step by kind: calls and bytes."""
+    return {k: {"calls": c / steps, "bytes": b / steps}
+            for k, (c, b) in sorted(dist.all_reduce_.counts.items())}
+
+
+def collective_profile(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler`` (CPU activity only): the
+    calls and host ms (``cpu_time_total``, children included) of each op
+    whose name holds an all-reduce, and the call's wall ms under the
+    profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    ops = {e.key: {"calls": e.count, "host_ms": e.cpu_time_total / 1e3}
+           for e in prof.key_averages()
+           if "allreduce" in e.key.lower().replace("_", "")}
+    return {"ops": ops, "profiled_wall_ms": wall}
+
+
+def time_rank_augment(host_rng) -> dict:
+    """``augment_batch`` with phase 3's STRONG config (512 px, targets without
+    masks) as a rank of a process group runs it: the global batch's draws
+    restricted to its rows (``sample_rows``: per-row draws, so a stage
+    computes on every row), against the same rows' count through the
+    compacted stages in one process, and the global batch in one process;
+    draws included.  CUDA-event ms, p50 of 5 after one warm-up."""
+    from uda_aerial_semantic_segmentation_research_tpu_torch.ops.augment import (
+        STRONG,
+        augment_batch,
+        sample_rows,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 173)
+    out = {}
+    for n in (32, 128):
+        images = torch.from_numpy(host_rng.integers(0, 256, (n, TILE, TILE, 3),
+                                                    dtype=np.uint8)).cuda()
+        row = {"one_process_compacted_ms": time_ms(
+            lambda: augment_batch(gen, images, cfg=STRONG), reps=5, warmup=1)}
+        for ranks in (2, 4):
+            x = images[:n // ranks]
+
+            def per_row():
+                abc, params = sample_rows(gen, tuple(x.shape), STRONG, False, 0, ranks)
+                return augment_batch(None, x, cfg=STRONG, abc=abc, params=params)
+
+            row[f"ranks{ranks}"] = {
+                "rows": x.shape[0], "rank_per_row_draws_ms": time_ms(per_row, reps=5, warmup=1),
+                "compacted_ms": time_ms(lambda: augment_batch(gen, x, cfg=STRONG),
+                                        reps=5, warmup=1)}
+        out[f"global_batch_{n}"] = row
+        del images
+    torch.cuda.empty_cache()
+    print(f"phase 17 augment_batch a rank (STRONG, {TILE} px): {json.dumps(out)}", flush=True)
+    return out
+
+
+def drive_dist_world1(counters, card, host_rng) -> dict:
+    """17a: the phase-1 step through the data-parallel path under an NCCL group
+    of one process, against the same steps without a group."""
+    import gc
+    import tempfile as _tempfile
+
+    from uda_aerial_semantic_segmentation_research_tpu_torch.parallel import distributed as dist
+    from uda_aerial_semantic_segmentation_research_tpu_torch.training import steps as step_lib
+
+    batches = [tuple(torch.from_numpy(a).to("cuda") for a in b)
+               for b in train_batches(host_rng, DIST_STEPS)]
+
+    def run(capturable=False):
+        seg, state, step, gen = dist_phase1(torch.bfloat16, SEED + 17, capturable)
+        launches = []
+        for b in batches:
+            before = read_counts(counters)
+            state, metrics = step(state, gen, *b)
+            after = read_counts(counters)
+            launches.append({k: after[k] - before[k] for k in after})
+        torch.cuda.synchronize()
+        return seg, state, step, gen, metrics, launches
+
+    def timed(step, state, gen):
+        return measure_step(lambda b: step(state, gen, *b), batches, counters)
+
+    seg, state, step, gen, metrics, plain_launches = run()
+    plain = {k: bits(v) for k, v in host_snapshot([seg], metrics).items()}
+    plain_time = timed(step, state, gen)
+    plain_profiled = collective_profile(lambda: step(state, gen, *batches[0]))
+    del seg, state, step, gen, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out = {"card": card}
+    with _tempfile.TemporaryDirectory(prefix="uda_nccl_") as d:
+        dist.initialize("file://" + os.path.join(d, "store"), 1, 0, device="cuda",
+                        backend="nccl", timeout=DIST_TIMEOUT_S)
+        try:
+            dist.all_reduce_.counts.clear()
+            seg, state, step, gen, metrics, launches = run()
+            census = collective_census(dist, DIST_STEPS)
+            grouped = {k: bits(v) for k, v in host_snapshot([seg], metrics).items()}
+            if set(grouped) != set(plain):
+                raise AssertionError("17a: the grouped step's tensors are not the plain one's")
+            differ = [k for k in plain if not torch.equal(plain[k], grouped[k])]
+            if differ:
+                raise AssertionError(f"17a: {len(differ)} tensors differ under an NCCL group of "
+                                     f"one process: {differ[:5]}")
+            for per_step in plain_launches + launches:
+                if per_step != DIST_EXPECTED:
+                    raise AssertionError(f"17a: launches {per_step}, expected {DIST_EXPECTED}")
+            group_time = timed(step, state, gen)
+            profiled = collective_profile(lambda: step(state, gen, *batches[0]))
+            del seg, state, step, gen, metrics
+            gc.collect()
+            torch.cuda.empty_cache()
+            out.update({"bit_identical_tensors": len(plain), "collectives_per_step": census,
+                        "launches_per_step": DIST_EXPECTED,
+                        "plain_step_ms_p50": plain_time["bare_step_ms_p50"],
+                        "nccl_step_ms_p50": group_time["bare_step_ms_p50"],
+                        "nccl_host_syncs_per_step": group_time["host_syncs_per_step"],
+                        "plain_step_profiled_wall_ms": plain_profiled["profiled_wall_ms"],
+                        "nccl_step_collective_profile": profiled})
+            # make_scan_driver over the grouped step: two eager runs of S=2 and
+            # the driver's graph, bit for bit where the eager runs are
+            s = 2
+            eager = []
+            for _ in range(2):
+                seg, state, step, gen = dist_phase1(torch.bfloat16, SEED + 17, capturable=True)
+                per_step = []
+                for b in batches[:s]:
+                    state, m = step(state, gen, *b)
+                    per_step.append(m)
+                tensors = {f"metric/{k}": torch.stack([m[k] for m in per_step])
+                           for k in per_step[0]}
+                tensors.update(scan_snapshot(state))
+                eager.append(tensors)
+                del seg, state, step, gen, per_step
+            seg, state, step, gen = dist_phase1(torch.bfloat16, SEED + 17, capturable=True)
+            multi = step_lib.make_scan_driver(step, unroll=1)
+            stacked = [torch.stack([b[i] for b in batches[:s]]) for i in range(2)]
+            before = read_counts(counters)
+            dist.all_reduce_.counts.clear()
+            state, scan_metrics = multi(state, gen, *stacked)
+            torch.cuda.synchronize()
+            # host-side counts: the warm-up's eager steps and the capture
+            captured = collective_census(dist, 1)
+            tensors = {f"metric/{k}": v for k, v in scan_metrics.items()}
+            tensors.update(scan_snapshot(state))
+            held = hold_scan("17a scan", eager[0], eager[1], tensors)
+            (entry,) = multi.graphs.values()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                enable_timing=True)
+            start.record()
+            multi(state, gen, *stacked)
+            end.record()
+            end.synchronize()
+            out["scan"] = {"steps": s, "held": held,
+                           "graph_ms_per_step": start.elapsed_time(end) / s,
+                           "eager_step_ms_p50": group_time["bare_step_ms_p50"],
+                           "collectives_warmup_and_capture": captured,
+                           "warmup_ms": entry.warmup_s * 1e3,
+                           "capture_ms": entry.capture_s * 1e3}
+            out["scan_launches"] = {k: v - before[k] for k, v in read_counts(counters).items()}
+            del seg, state, step, gen, multi, eager
+        finally:
+            dist.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 17a (NCCL, one process): {json.dumps(out)}", flush=True)
+    return out
+
+
+class WeightedTiles(InMemoryTiles):
+    """``InMemoryTiles`` with ``DroneDataset.get_sampler``'s contract (class
+    balance weights of the masks), so that ``pipeline._build_loaders`` takes
+    it as the source dataset."""
+
+    def __init__(self, images, masks):
+        from uda_aerial_semantic_segmentation_research_tpu_torch.data.dataset import (
+            class_balance,
+        )
+
+        super().__init__(images, masks)
+        counts = [np.bincount(m.reshape(-1), minlength=CLASSES) for m in masks]
+        _, self.weights = class_balance([{c: int(n[c]) for c in np.nonzero(n)[0]}
+                                         for n in counts], [m.size for m in masks])
+
+    def get_sampler(self, indices=None):
+        from uda_aerial_semantic_segmentation_research_tpu_torch.data.dataset import (
+            WeightedRandomSampler,
+        )
+
+        w = self.weights[list(indices)] if indices is not None else self.weights
+        return WeightedRandomSampler(w / w.sum(), num_samples=len(w))
+
+
+def _dist_rank(rank, d):
+    """One rank of 17b (a spawned process): gloo, the card shared with the
+    other rank.  Writes ``rank<r>.pt``."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from uda_aerial_semantic_segmentation_research_tpu_torch.config import Config
+    from uda_aerial_semantic_segmentation_research_tpu_torch.models import (
+        DomainAdaptationModel,
+        create_discriminator,
+        create_unet,
+    )
+    from uda_aerial_semantic_segmentation_research_tpu_torch.ops.losses import FineTuningLoss
+    from uda_aerial_semantic_segmentation_research_tpu_torch.parallel import distributed as dist
+    from uda_aerial_semantic_segmentation_research_tpu_torch.training import (
+        pipeline,
+        steps as step_lib,
+    )
+    from uda_aerial_semantic_segmentation_research_tpu_torch.training.state import (
+        AdversarialState,
+        TrainState,
+        adam,
+    )
+
+    # the trainers print a line a step: into this rank's log, shown on failure
+    sys.stdout = sys.stderr = open(os.path.join(d, f"rank{rank}.log"), "w", buffering=1)
+    counters = kernel_counters()
+    inputs = torch.load(os.path.join(d, "inputs.pt"), weights_only=False)
+    globals().update(inputs["settings"])
+    dist.initialize("file://" + os.path.join(d, "store"), DIST_RANKS, rank,
+                    local_device_ids=[0], device="cuda", backend="gloo",
+                    timeout=DIST_TIMEOUT_S)
+    b = TRAIN_BATCH // DIST_RANKS
+    rows = {k: torch.from_numpy(v[rank * b:(rank + 1) * b]).to("cuda")
+            for k, v in inputs["batch"].items()}
+    out = {}
+
+    def timed_step(fn):
+        reset_counts(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, (time.perf_counter() - t0) * 1e3, read_counts(counters)
+
+    try:
+        # f32 (TF32 off) and bf16 phase-1 steps at the global B=32
+        for label, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            seg, state, step, gen = dist_phase1(dtype, SEED + 171)
+            (_, metrics), ms, launches = timed_step(
+                lambda: step(state, gen, rows["images"], rows["masks"]))
+            snap = host_snapshot([seg], metrics)
+            out[label] = {"snapshot": snap if rank == 0 else None, "digest": digest(snap),
+                          "loss": metrics["loss"].item(), "ms": ms, "launches": launches}
+            del seg, state, step, gen, metrics, snap
+            torch.cuda.empty_cache()
+        # phase 2 (the adversarial step) and phase 3's production point
+        seg = create_unet("resnet34", classes=CLASSES, seed=SEED, dtype=torch.bfloat16,
+                          device="cuda")
+        disc = create_discriminator(seed=SEED + 1, dtype=torch.bfloat16, device="cuda")
+        state = AdversarialState(TrainState(seg, adam(PROD_LR["phase2"])),
+                                 TrainState(disc, adam(PROD_LR["phase2"])))
+        step = step_lib.make_adversarial_train_step(seg, disc, CLASSES)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 172)
+        (_, metrics), ms, launches = timed_step(
+            lambda: step(state, gen, rows["images"], rows["masks"], rows["targets"]))
+        out["phase2"] = {"ms": ms, "launches": launches,
+                         "finite": bool(torch.isfinite(metrics["loss"]).item()),
+                         "buffers": digest({f"{i}/{k}": v for i, m in enumerate((seg, disc))
+                                            for k, v in m.named_buffers()}),
+                         "loss": metrics["loss"].item()}
+        state = TrainState(DomainAdaptationModel(seg, disc),
+                           adam(PROD_LR["phase3"], clip_norm=1.0), skip_nonfinite=True)
+        step = step_lib.make_unsupervised_sequential_step(
+            seg.clone(remat="encoder", logits_dtype=torch.bfloat16), disc, CLASSES,
+            FineTuningLoss(), carry_dtype=torch.bfloat16)
+        (_, metrics), ms, launches = timed_step(
+            lambda: step(state, gen, rows["targets"], PROD_EPOCH))
+        out["phase3"] = {"ms": ms, "launches": launches,
+                         "finite": bool(metrics["finite"].item()),
+                         "buffers": digest({f"{i}/{k}": v for i, m in enumerate((seg, disc))
+                                            for k, v in m.named_buffers()}),
+                         "total": metrics["total"].item()}
+        del seg, disc, state, step, gen, metrics
+        torch.cuda.empty_cache()
+
+        # run_pipeline at the CLI defaults, each rank's files under its own dirs
+        mine = os.path.join(d, f"rank{rank}")
+        Config.IMAGE_SIZE, Config.BATCH_SIZE, Config.NUM_CLASSES = (
+            DIST_PIPE_TILE, DIST_PIPE_BATCH, CLASSES)
+        Config.ENCODER_NAME, Config.ENCODER_WEIGHTS, Config.DEVICE = "resnet34", None, "cuda"
+        Config.LOGS_DIR = os.path.join(mine, "logs")
+        Config.CHECKPOINTS_DIR = Config.CHECKPOINT_DIR = os.path.join(mine, "checkpoints")
+        Config.DATA_DIR = os.path.join(mine, "data")
+        Config.RESULTS_DIR = os.path.join(mine, "results")
+        pipe = inputs["pipeline"]
+        real_build = pipeline._build_loaders
+        pipeline._build_loaders = lambda batch_size: real_build(
+            batch_size, source=WeightedTiles(pipe["images"], pipe["masks"]),
+            target=InMemoryTargets(pipe["targets"]))
+        model = create_unet("resnet34", classes=CLASSES, seed=SEED, dtype=torch.bfloat16,
+                            device="cuda")
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        summary = pipeline.run_pipeline(1, 1, 1, force_transitions=True, model=model)
+        torch.cuda.synchronize()
+        files = sorted(os.path.relpath(os.path.join(root, f), mine)
+                       for root, _, fs in os.walk(mine) for f in fs)
+        out["pipeline"] = {"final_phase": summary["final_phase"],
+                           "metrics": {k: v["metrics"] for k, v in summary["phases"].items()},
+                           "model": digest(model.state_dict()),
+                           "files": files, "wall_s": time.perf_counter() - t0,
+                           "launches": read_counts(counters)}
+        out["collectives"] = dict(dist.all_reduce_.counts)
+    finally:
+        dist.shutdown()
+    torch.save(out, os.path.join(d, f"rank{rank}.pt"))
+
+
+# float32 gradients of two ranks, of each tensor's largest: against one
+# process that repeats the ranks' arithmetic (BatchNorm sums of the halves
+# added, each convolution on each half) and against the plain process at
+# B=32, which the ranks' reassociation moves by ~6e-3 (PERF.md, PR 14)
+DIST_GRAD_TOL, DIST_PLAIN_GRAD_TOL = 1e-4, 1e-2
+
+
+def grad_gap(ref, got):
+    """Two snapshots' gradients: the worst difference over its tensor's
+    largest entry (over 1e-6 of the network's largest for a tensor below
+    that) and that tensor, and the worst relative L2 difference of a tensor
+    (a few flipped units give a large first number and a small second)."""
+    grads = {k: ref[k] for k in ref if "/grad/" in k}
+    largest = max(g.abs().max().item() for g in grads.values())
+    gap, worst, rel_l2 = 0.0, None, 0.0
+    for k, g in grads.items():
+        diff = got[k] - g
+        err = diff.abs().max().item() / max(g.abs().max().item(), 1e-6 * largest)
+        if err > gap:
+            gap, worst = err, k
+        rel_l2 = max(rel_l2, (diff.norm() / g.norm().clamp_min(1e-6 * largest)).item())
+    return gap, worst, rel_l2
+
+
+def drive_dist_two_ranks(counters, card, host_rng) -> dict:
+    """17b: two gloo ranks sharing the card (see main)."""
+    import gc
+    import multiprocessing
+    import tempfile as _tempfile
+
+    images, masks = train_batches(host_rng, 1)[0]
+    targets = np.clip(host_rng.integers(0, 256, images.shape) * 0.7 + 40.0, 0,
+                      255).astype(np.uint8)
+    pipe = {"images": host_rng.integers(0, 256, (DIST_PIPE_TILES, DIST_PIPE_TILE,
+                                                 DIST_PIPE_TILE, 3), dtype=np.uint8),
+            "masks": host_rng.integers(0, CLASSES, (DIST_PIPE_TILES, DIST_PIPE_TILE,
+                                                    DIST_PIPE_TILE)).astype(np.int32),
+            "targets": np.clip(host_rng.integers(0, 256, (DIST_PIPE_TARGETS, DIST_PIPE_TILE,
+                                                          DIST_PIPE_TILE, 3)) * 0.7 + 40.0,
+                               0, 255).astype(np.uint8)}
+    # the one-process references: the f32 and bf16 steps at B=32, same draws,
+    # and the f32 step with the ranks' arithmetic: the BatchNorm sums of the
+    # two halves added, as the all-reduce adds the ranks', and every
+    # convolution run on each half (cuDNN's algorithms at B=16, the weight
+    # gradient a sum of the halves', as the gradient all-reduce sums the
+    # ranks'); for the gaps line, the split sums alone, and cuDNN's
+    # deterministic algorithms (another choice of algorithms at B=32)
+    from uda_aerial_semantic_segmentation_research_tpu_torch.ops import batch_norm
+
+    def split_sums(fn):
+        def split(*ts):
+            half = ts[0].shape[0] // 2
+            a, b = fn(*(t[:half] for t in ts)), fn(*(t[half:] for t in ts))
+            return a[0] + b[0], a[1] + b[1]
+        return split
+
+    def halves_conv(x, *args, **kwargs):
+        half = x.shape[0] // 2
+        y = torch.cat([real_conv(x[:half], *args, **kwargs),
+                       real_conv(x[half:], *args, **kwargs)])
+        if x.is_contiguous(memory_format=torch.channels_last):
+            y = y.contiguous(memory_format=torch.channels_last)
+        return y
+
+    real_sums = batch_norm.channel_sums, batch_norm.channel_dual_sums
+    real_conv = torch.nn.functional.conv2d
+    refs = {}
+    for label, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16),
+                         ("f32_ranks_arithmetic", torch.float32),
+                         ("f32_split_sums", torch.float32),
+                         ("f32_deterministic", torch.float32)):
+        torch.backends.cudnn.deterministic = label == "f32_deterministic"
+        if label in ("f32_ranks_arithmetic", "f32_split_sums"):
+            batch_norm.channel_sums, batch_norm.channel_dual_sums = map(split_sums, real_sums)
+        if label == "f32_ranks_arithmetic":
+            torch.nn.functional.conv2d = halves_conv
+        seg, state, step, gen = dist_phase1(dtype, SEED + 171)
+        t0 = time.perf_counter()
+        _, metrics = step(state, gen, torch.from_numpy(images).to("cuda"),
+                          torch.from_numpy(masks).to("cuda"))
+        torch.cuda.synchronize()
+        refs[label] = {"snapshot": host_snapshot([seg], metrics) if dtype == torch.float32
+                       else None, "loss": metrics["loss"].item(),
+                       "ms": (time.perf_counter() - t0) * 1e3}
+        del seg, state, step, gen, metrics
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.backends.cudnn.deterministic = False
+        batch_norm.channel_sums, batch_norm.channel_dual_sums = real_sums
+        torch.nn.functional.conv2d = real_conv
+    plain = refs["f32"]["snapshot"]
+    witness = refs.pop("f32_ranks_arithmetic")
+    split = refs.pop("f32_split_sums")["snapshot"]
+    gaps = {"one_process_deterministic_algorithms_vs_plain":
+            grad_gap(plain, refs.pop("f32_deterministic")["snapshot"]),
+            "one_process_split_sums_vs_plain": grad_gap(plain, split)}
+
+    out = {"card": card}
+    with _tempfile.TemporaryDirectory(prefix="uda_gloo_") as d:
+        torch.save({"batch": {"images": images, "masks": masks, "targets": targets},
+                    "pipeline": pipe, "settings": {k: globals()[k] for k in DIST_SETTINGS}},
+                   os.path.join(d, "inputs.pt"))
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=_dist_rank, args=(r, d)) for r in range(DIST_RANKS)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + DIST_TIMEOUT_S
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 1.0))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * DIST_RANKS:
+            for r in range(DIST_RANKS):
+                log = os.path.join(d, f"rank{r}.log")
+                if os.path.exists(log):
+                    with open(log) as f:
+                        print(f"17b rank {r} log (end):\n{f.read()[-3000:]}", flush=True)
+            raise AssertionError(f"17b: ranks exited with {codes} (a rank that fails or "
+                                 "hangs fails the run)")
+        ranks = [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False)
+                 for r in range(DIST_RANKS)]
+        out["ranks_wall_s"] = time.perf_counter() - t0
+
+    a, b = ranks
+    # f32: rank 0 against the one-process references; rank 1 against rank 0
+    got = a["f32"]["snapshot"]
+    gaps.update({"one_process_ranks_arithmetic_vs_plain": grad_gap(plain, witness["snapshot"]),
+                 "two_ranks_vs_plain": grad_gap(plain, got),
+                 "two_ranks_vs_split_sums": grad_gap(split, got),
+                 "two_ranks_vs_ranks_arithmetic": grad_gap(witness["snapshot"], got)})
+    # (worst gap of its tensor's largest, that tensor, worst relative L2)
+    print(f"phase 17b f32 gradient gaps: {json.dumps(gaps)}", flush=True)
+    rel = {}
+    for label, ref in (("plain", refs["f32"]), ("ranks_arithmetic", witness)):
+        rel[label] = abs(a["f32"]["loss"] - ref["loss"]) / abs(ref["loss"])
+        if not rel[label] <= 1e-5:
+            raise AssertionError(f"17b f32: loss {a['f32']['loss']} against the {label} "
+                                 f"process's {ref['loss']}")
+    out["f32"] = {"loss_rel_err": rel,
+                  "against_ranks_arithmetic": hold_update(
+                      "17b f32 against the ranks' arithmetic", witness["snapshot"], got,
+                      DIST_LR, DIST_GRAD_TOL, buffer_tol=1e-5),
+                  "against_plain": hold_update("17b f32 against the plain process", plain, got,
+                                               DIST_LR, DIST_PLAIN_GRAD_TOL, buffer_tol=1e-5),
+                  "grad_gaps": gaps}
+    rel = abs(a["bf16"]["loss"] - refs["bf16"]["loss"]) / abs(refs["bf16"]["loss"])
+    if not (rel <= 1e-2 and math.isfinite(a["bf16"]["loss"])):
+        raise AssertionError(f"17b bf16: loss {a['bf16']['loss']} against "
+                             f"{refs['bf16']['loss']}")
+    out["bf16"] = {"loss_rel_err": rel}
+    for label in ("f32", "bf16"):
+        if a[label]["digest"] != b[label]["digest"]:
+            raise AssertionError(f"17b {label}: the ranks' states differ")
+    for label in ("phase2", "phase3"):
+        if not (a[label]["finite"] and b[label]["finite"]):
+            raise AssertionError(f"17b {label}: not finite")
+        if a[label]["buffers"] != b[label]["buffers"]:
+            raise AssertionError(f"17b {label}: the ranks' BatchNorm buffers differ")
+    for rank in ranks:
+        for label, expected in (("f32", DIST_EXPECTED), ("bf16", DIST_EXPECTED),
+                                ("phase2", DIST_PHASE2_EXPECTED),
+                                ("phase3", DIST_PHASE3_EXPECTED)):
+            if rank[label]["launches"] != expected:
+                raise AssertionError(f"17b {label}: launches {rank[label]['launches']}, "
+                                     f"expected {expected}")
+    pa, pb = a["pipeline"], b["pipeline"]
+    if not (pa["final_phase"] == pb["final_phase"] == "FINE_TUNING"):
+        raise AssertionError(f"17b pipeline: final phases {pa['final_phase']}, "
+                             f"{pb['final_phase']}")
+    if pa["model"] != pb["model"]:
+        raise AssertionError("17b pipeline: the ranks' final weights differ")
+    if pb["files"] or not pa["files"]:
+        raise AssertionError(f"17b pipeline: rank 1 wrote {pb['files'][:5]}, rank 0 "
+                             f"{len(pa['files'])} files")
+    kinds = {os.path.basename(f).split(".")[0] for f in pa["files"]}
+    if not {"best_model", "training_metadata", "events"} <= kinds:
+        raise AssertionError(f"17b pipeline: rank 0 wrote {pa['files']}")
+    if pa["metrics"] != pb["metrics"]:
+        raise AssertionError("17b pipeline: the ranks' summaries differ")
+    out.update({
+        "timing_note": "two ranks share one card and gloo stages through the host: "
+                       "correctness runs, not performance figures",
+        "step_ms": {label: [r[label]["ms"] for r in ranks]
+                    for label in ("f32", "bf16", "phase2", "phase3")},
+        "one_process_step_ms": {k: v["ms"] for k, v in refs.items()},
+        "launches_per_rank": {label: a[label]["launches"]
+                              for label in ("f32", "bf16", "phase2", "phase3")},
+        "pipeline": {"final_phase": pa["final_phase"], "wall_s": [pa["wall_s"], pb["wall_s"]],
+                     "rank0_files": len(pa["files"]), "rank1_files": 0,
+                     "launches_per_rank": [pa["launches"], pb["launches"]]},
+        "collectives_rank0": a["collectives"]})
+    launches = {k: sum(r[label]["launches"][k] for r in ranks
+                       for label in ("f32", "bf16", "phase2", "phase3"))
+                + sum(r["pipeline"]["launches"][k] for r in ranks) for k in DIST_EXPECTED}
+    out["launches"] = launches
+    print(f"phase 17b (gloo, two ranks on one card): {json.dumps(out)}", flush=True)
+    return out
+
+
+def _dist_child(card, path) -> None:
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counters = kernel_counters()
+    t0 = time.perf_counter()
+    reset_counts(counters)
+    world1 = drive_dist_world1(counters, card, np.random.default_rng(SEED + 17))
+    launches = read_counts(counters)
+    world1["wall_s"] = time.perf_counter() - t0
+    # (outside the main path's counts)
+    world1["augment_a_rank"] = time_rank_augment(np.random.default_rng(SEED + 173))
+    t0 = time.perf_counter()
+    two = drive_dist_two_ranks(counters, card, np.random.default_rng(SEED + 171))
+    two["wall_s"] = time.perf_counter() - t0
+    with open(path, "w") as f:
+        json.dump({"nccl_world1": world1, "gloo_two_ranks": two,
+                   "launches": {k: launches[k] + two["launches"].get(k, 0) for k in launches}},
+                  f)
+
+
+def dist_phase(card) -> dict:
+    """Phase 17 in a fresh process of its own (spawned, as phases 9-16, but not
+    a pool's daemon: it spawns the two ranks of 17b).  A child that fails or
+    does not finish in time fails the run."""
+    import multiprocessing
+    import tempfile as _tempfile
+
+    torch.cuda.empty_cache()
+    with _tempfile.TemporaryDirectory(prefix="uda_phase17_") as d:
+        path = os.path.join(d, "result.json")
+        child = multiprocessing.get_context("spawn").Process(target=_dist_child,
+                                                             args=(card, path))
+        child.start()
+        child.join(3 * DIST_TIMEOUT_S)
+        if child.is_alive():
+            child.kill()
+            child.join()
+        if child.exitcode != 0:
+            raise AssertionError(f"phase 17: its process exited with {child.exitcode}")
+        with open(path) as f:
+            return json.load(f)
+
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--probe-batch", type=int, default=None,
@@ -3918,6 +4577,8 @@ def main(argv=None) -> int:
                              "built from this (older) source, at the train step's shape")
     parser.add_argument("--only-scan", action="store_true",
                         help="only the kernels' capture checks (3c) and phases 15-16")
+    parser.add_argument("--only-dist", action="store_true",
+                        help="only phase 17 (data parallelism across processes)")
     args = parser.parse_args(argv)
     t_script = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3982,6 +4643,13 @@ def main(argv=None) -> int:
         print(card_line())
         return 0
     counters = kernel_counters()
+    if args.only_dist:
+        t0 = time.perf_counter()
+        dist_result = dist_phase(card)
+        dist_result["process_wall_s"] = time.perf_counter() - t0
+        print(json.dumps({"dist": dist_result}), flush=True)
+        print(card_line())
+        return 0
     if args.only_scan:
         capture_checks(cbr, sums_ops, dihedral_ops, ce_ops,
                        torch.Generator(device="cuda").manual_seed(SEED),
@@ -4313,11 +4981,19 @@ def main(argv=None) -> int:
                       "process_wall_s": scan_result["process_wall_s"]}), flush=True)
     print(json.dumps({"fused_decoder": scan_result["fused_decoder"]}), flush=True)
 
+    # 17. data parallelism across processes, in a process of its own that
+    #     spawns the two ranks of 17b
+    t0 = time.perf_counter()
+    dist_result = dist_phase(card)
+    dist_result["process_wall_s"] = time.perf_counter() - t0           # spawn to result
+    dist_counts = dist_result["launches"]
+    print(json.dumps({"dist": dist_result}), flush=True)
+
     # 8. results
     total = {k: serving_counts[k] + train_counts[k] + eval_counts[k] + trainer_counts[k]
              + pipeline_counts[k] + multiphase_counts[k] + system_counts[k]
              + production_counts[k] + architectures_counts.get(k, 0) + scan_counts[k]
-             for k in counters}
+             + dist_counts.get(k, 0) for k in counters}
     if min(total.values()) == 0:
         raise AssertionError(f"a kernel never launched on the main paths: {total}")
     src = f"{PORT}/csrc"
@@ -4427,12 +5103,17 @@ def main(argv=None) -> int:
         "bound_by": ce32["bound_by"], "library_ms": ce32["library_fwd_bwd_ms"],
         "capture_check": captured["fused_cross_entropy"],
     }]
+    for entry in entries:
+        names = (("channel_sums", "channel_dual_sums") if entry["name"] == "channel_sums"
+                 else (entry["name"],))
+        entry["launches_phase17"] = sum(dist_counts.get(n, 0) for n in names)
     print(f"chip_smoke wall time: {time.perf_counter() - t_script:.1f} s (phase 11 with "
           f"its process: {multiphase_result['process_wall_s']:.1f} s, phase 12: "
           f"{system_result['process_wall_s']:.1f} s, phase 13: "
           f"{production_result['process_wall_s']:.1f} s, phase 14: "
           f"{architectures_result['process_wall_s']:.1f} s, phases 15-16: "
-          f"{scan_result['process_wall_s']:.1f} s)", flush=True)
+          f"{scan_result['process_wall_s']:.1f} s, phase 17: "
+          f"{dist_result['process_wall_s']:.1f} s)", flush=True)
     print(json.dumps({"kernels": entries}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

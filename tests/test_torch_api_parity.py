@@ -7,8 +7,9 @@
   ``create_model`` the same parameter tree, and the seed where JAX has it);
 - every package whose JAX counterpart has an ``__all__`` exports the same
   names, less those ``ROADMAP.md`` lists as not ported (``ModelBundle``,
-  ``AsyncPytreeCheckpointer``, ``pallas_ops``; the
-  ``parallel`` package is multi-device work, ``ROADMAP.md`` A.14).
+  ``AsyncPytreeCheckpointer``, ``pallas_ops``, and the height-sharded
+  forward of ``parallel``: ``spatial_mesh``, ``spatial_image_sharding``,
+  ``spatial_forward``, ``ROADMAP.md`` A.14b).
 """
 
 import importlib
@@ -34,9 +35,10 @@ from uda_aerial_semantic_segmentation_research_tpu_torch.models import (
 
 JAX = "uda_aerial_semantic_segmentation_research_tpu"
 PORT = f"{JAX}_torch"
-NOT_PORTED = {"ModelBundle", "AsyncPytreeCheckpointer", "pallas_ops"}
+NOT_PORTED = {"ModelBundle", "AsyncPytreeCheckpointer", "pallas_ops",
+              "spatial_mesh", "spatial_image_sharding", "spatial_forward"}
 PACKAGES = ["", "training", "inference", "data", "utils", "visualization", "models", "ops",
-            "analysis"]
+            "analysis", "parallel"]
 
 
 def test_create_model_takes_image_size_in_the_jax_position():
@@ -122,10 +124,11 @@ def test_run_pipeline_export_calls_the_pipeline(monkeypatch):
 
 
 def test_every_jax_package_with_an_all_is_covered():
-    """The JAX packages that declare ``__all__`` are those above and
-    ``parallel``, which the port does not have yet."""
+    """The JAX packages that declare ``__all__`` are those above, and the
+    port has each of them."""
     root = Path(importlib.import_module(JAX).__file__).parent
     declared = {str(f.parent.relative_to(root)).replace(".", "") for f in root.rglob(
         "__init__.py") if "__all__" in f.read_text()}
-    assert declared == set(PACKAGES) | {"parallel"}
-    assert importlib.util.find_spec(f"{PORT}.parallel") is None
+    assert declared == set(PACKAGES)
+    for package in PACKAGES:
+        assert importlib.util.find_spec(f"{PORT}.{package}".rstrip(".")) is not None

@@ -24,7 +24,9 @@ On the CPU (the scan driver runs the S steps one after another there):
 On the card (``-m gpu``; they skip here): the scan driver's CUDA graphs against
 eager steps of the same capturable state and generator, bit for bit with
 cuDNN's deterministic algorithms; replays across calls; the generator's
-registration; a capture's refusals; the capturable Adam (foreach, and fused
+registration; a capture's refusals (and a process group's: NCCL's
+collectives are captured with the step, gloo on the card refuses); the
+capturable Adam (foreach, and fused
 with the phase-3 ``found_inf``; its bias corrections on the device in
 float32) against that numpy Adam over three updates, 1e-6.  JAX is imported only inside the test
 that compares against it, so the GPU tests run on a machine without JAX or
@@ -460,6 +462,39 @@ def test_cuda_graph_replays_are_the_eager_steps_on_gpu(deterministic_cudnn, unro
     kept = first["loss"].clone()
     multi(state, gen, images[:2], masks[:2])
     assert torch.equal(first["loss"], kept)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["nccl", "gloo"])
+def test_scan_driver_under_a_process_group_on_gpu(deterministic_cudnn, tmp_path, backend):
+    """Under an NCCL group of one process the graph holds the step's
+    collectives and its replays are the eager steps bit for bit; under gloo,
+    which stages CUDA tensors through the host, the card refuses."""
+    from uda_aerial_semantic_segmentation_research_tpu_torch.parallel import distributed
+    images, masks = _card_batches(2)
+    distributed.initialize("file://" + str(tmp_path / "store"), 1, 0, device="cuda",
+                           backend=backend)
+    try:
+        model, state, step = _card_case()
+        multi = steps.make_scan_driver(step)
+        if backend == "gloo":
+            with pytest.raises(RuntimeError, match="NCCL"):
+                multi(state, torch.Generator(device="cuda").manual_seed(3), images, masks)
+            return
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        eager = [step(state, gen, images[i], masks[i])[1]["loss"] for i in range(2)]
+        eager_state = _snapshot([state])
+        model, state, step = _card_case()
+        multi = steps.make_scan_driver(step)
+        distributed.all_reduce_.counts.clear()
+        state, metrics = multi(state, torch.Generator(device="cuda").manual_seed(3), images,
+                               masks)
+        assert distributed.all_reduce_.counts["bn_forward"][0] > 0
+        assert torch.equal(metrics["loss"], torch.stack(eager))
+        for k, v in eager_state.items():
+            assert torch.equal(_snapshot([state])[k], v), k
+    finally:
+        distributed.shutdown()
 
 
 @pytest.mark.gpu

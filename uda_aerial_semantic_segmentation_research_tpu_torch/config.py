@@ -58,6 +58,7 @@ class Config:
     # --- device knobs ------------------------------------------------------
     COMPUTE_DTYPE: str = "bfloat16"       # activations and convolutions
     PARAM_DTYPE: str = "float32"          # master weights
+    MESH_AXIS: str = "data"               # data-parallel mesh axis name
     DEVICE: str = "cuda"                  # 'cuda' | 'cpu'
 
     @classmethod

@@ -313,9 +313,11 @@ def _compact_apply(prio, x, want, budget: int, fn):
     writes it back (``index_copy`` on unique indices).  Returns (out,
     served): ``out[i] == fn(x)[i]`` where served, ``x[i]`` elsewhere;
     ``served == want`` unless more than ``budget`` images were selected.
+    Without priorities (``prio`` None: per-row draws, ``rows_of_draws``)
+    every image of ``want`` is served.
     """
     n = x.shape[0]
-    if budget >= n:
+    if budget >= n or prio is None:
         full = fn(x)
         return torch.where(want.view(-1, 1, 1, 1), full, x), want
     idx = _compact_select(prio, want, budget)
@@ -457,7 +459,7 @@ def _warp_family(prio, x, m, do, warp_fn, budget: int):
     ``budget`` of the ``do`` images, warp the subset, write it back.
     Over-budget images skip their warp (P ~ 1e-3 at the 3-sigma budget)."""
     n = x.shape[0]
-    if budget >= n:
+    if budget >= n or prio is None:
         return warp_fn(x, m, do)
     idx = _compact_select(prio, do, budget)
     xs = x.index_select(0, idx)
@@ -816,7 +818,7 @@ def _blur_stage(x, d: BlurDraws, cfg: AugmentConfig):
                                        _box_blur(sub, size)))
 
     budget = _subset_budget(n, cfg.p_blur)
-    if budget >= n:
+    if budget >= n or d.prio is None:
         return torch.where(_gate(d.do), blur(x, d.choice, d.direction), x)
     # the OneOf choice and the direction follow the gathered images
     idx = _compact_select(d.prio, d.do, budget)
@@ -848,7 +850,7 @@ def _color_stage(x, d: ColorDraws, cfg: AugmentConfig):
         return sharp, emb
 
     budget_se = _subset_budget(n, cfg.p_color * (se_hi - se_lo))
-    if budget_se >= n:
+    if budget_se >= n or d.se_prio is None:
         sharp, emb = se_members(x)
         se = torch.where(_gate(uw < se_mid), sharp, emb)
     else:
@@ -1014,6 +1016,102 @@ def sample_params(generator: torch.Generator, shape, cfg: AugmentConfig,
     after its dihedral draws)."""
     return AugmentDraws(sample_warp_params(generator, shape, cfg, has_masks),
                         sample_photometric_params(generator, shape, cfg))
+
+
+def _slot_of_rows(prio, want, n: int, budget: int):
+    """``(served, slot)`` of a compacted stage over ``n`` images: whether
+    image i is served (selected by ``want`` and within the budget) and the
+    subset slot it takes (whose per-slot draws it gets)."""
+    rows = torch.arange(n, device=want.device)
+    if budget >= n or prio is None:
+        return want, rows
+    idx = _compact_select(prio, want, budget)
+    slot = torch.zeros(n, dtype=torch.int64, device=want.device).index_copy(
+        0, idx, torch.arange(idx.numel(), device=want.device))
+    selected = torch.zeros_like(want).index_fill(0, idx, True)
+    return want & selected, slot
+
+
+def _warp_rows(d, p: float, n: int, rows, params):
+    """Per-row form of one warp family's draws ``d``: each row's group
+    parameters (a group of one image per row) and its served gate."""
+    served, slot = _slot_of_rows(d.prio, d.do, n, _subset_budget(n, p))
+    group = slot // (_slots(n, p) // params[0].shape[0])
+    return type(d)(served[rows], None, *(v[group[rows]] for v in params))
+
+
+def rows_of_draws(abc, params: Optional[AugmentDraws], n: int, rows, cfg: AugmentConfig):
+    """The draws of the images ``rows`` (a slice) of a batch of ``n``
+    images, in a form that ``augment_batch`` applies to those images alone
+    exactly as it applies the batch's draws to them inside the batch.
+
+    A compacted stage serves at most its budget of the ``n`` images and
+    hands out per-slot draws (noise, shifts, group warps) in its subset's
+    order; the per-row form gives every row its own draws, its served gate
+    folded into the stage's gate, and no priorities (so no compaction: a
+    stage computes on every row and keeps the served ones).  Warp groups
+    become groups of one image.  A data-parallel step draws the global
+    batch's draws from the shared generator and applies its rows'
+    (``training.steps``)."""
+    if abc is not None:
+        abc = tuple(t[rows] for t in abc)
+    if params is None:
+        return abc, None
+    ssr, distort = params.warp
+    if ssr is not None:
+        ssr = _warp_rows(ssr, cfg.p_ssr, n, rows, (ssr.shift, ssr.scale, ssr.angle))
+    if distort is not None:
+        distort = _warp_rows(distort, cfg.p_distort, n, rows,
+                             (distort.which, distort.k2, distort.grid, distort.elastic))
+    noise, blur, color, hsv = params.photometric
+    if noise is not None:
+        served, slot = _slot_of_rows(noise.prio, noise.do, n, _subset_budget(n, cfg.p_noise))
+        noise = NoiseDraws(served[rows], None, noise.std[slot[rows]], noise.noise[slot[rows]])
+    if blur is not None:
+        served, _ = _slot_of_rows(blur.prio, blur.do, n, _subset_budget(n, cfg.p_blur))
+        blur = BlurDraws(served[rows], None, blur.choice[rows], blur.direction[rows])
+    if color is not None:
+        se_lo, se_hi = _se_range(color.clahe_clip is not None)
+        uw = color.choice
+        want_se = color.do & (uw >= se_lo) & (uw < se_hi)
+        served_se, slot_se = _slot_of_rows(color.se_prio, want_se, n, _subset_budget(
+            n, cfg.p_color * (se_hi - se_lo)))
+        do = color.do & ~(want_se & ~served_se)
+        clip = None
+        if color.clahe_clip is not None:
+            want_cl = color.do & (uw < 0.25)
+            served_cl, slot_cl = _slot_of_rows(color.clahe_prio, want_cl, n,
+                                               _subset_budget(n, cfg.p_color * 0.25))
+            do = do & ~(want_cl & ~served_cl)
+            clip = color.clahe_clip[slot_cl[rows]]
+        se = [v[slot_se[rows]] for v in (color.sharpen_alpha, color.sharpen_lightness,
+                                         color.emboss_alpha, color.emboss_strength)]
+        color = ColorDraws(do[rows], uw[rows], color.brightness[rows], color.contrast[rows],
+                           None, *se, None, clip)
+    if hsv is not None:
+        served, slot = _slot_of_rows(hsv.prio, hsv.do, n, _subset_budget(n, cfg.p_hsv))
+        hsv = HSVDraws(served[rows], None, hsv.hue[slot[rows]], hsv.sat[slot[rows]],
+                       hsv.val[slot[rows]])
+    return abc, AugmentDraws(WarpDraws(ssr, distort),
+                             PhotometricDraws(noise, blur, color, hsv))
+
+
+def sample_rows(generator: torch.Generator, shape, cfg: AugmentConfig, has_masks: bool,
+                index: int, count: int):
+    """``(abc, params)`` for ``augment_batch`` of the ``index``-th of
+    ``count`` equal row blocks of a global batch: the global batch's draws
+    (``count * shape[0]`` images of ``shape`` (B, H, W, C), drawn from
+    ``generator`` in ``augment_batch``'s order: dihedral elements, then
+    ``sample_params``), restricted to that block by ``rows_of_draws``.
+    Either is None where ``cfg`` has no such stage."""
+    b = shape[0]
+    n = b * count
+    abc = params = None
+    if cfg.p_rot90 > 0 or cfg.p_flip > 0 or cfg.p_transpose > 0:
+        abc = _sample_dihedral(generator, n, cfg)
+    if _has_random_stages(cfg):
+        params = sample_params(generator, (n, *shape[1:]), cfg, has_masks)
+    return rows_of_draws(abc, params, n, slice(index * b, (index + 1) * b), cfg)
 
 
 def _has_random_stages(cfg: AugmentConfig) -> bool:

@@ -23,6 +23,17 @@ discards -- runs under ``frozen_statistics()``: train mode still normalizes
 with the batch statistics, but the running buffers stay as they are, so
 they end a step bit-identical to the same step without the second forward
 (flax's ``nn.remat`` threads the statistics of the first forward only).
+
+Under a process group (``parallel.distributed``; one process per device,
+each with its rows of the global batch) the statistics are the global
+batch's, as under the JAX package's mesh: the forward's ``(sum x, sum x*x)``
+are all-reduced and divided by the global count, and the backward
+all-reduces ``(sum dy, sum dy*x)`` for the input gradient.  The scale and
+bias gradients come from this process's own sums: the gradient average over
+the processes adds the others' (from the reduced sums they would be N times
+too large).  Every process runs the same BatchNorms in the same order, so
+the collectives pair up, the recomputes under ``frozen_statistics()``
+included.  Without a process group nothing changes.
 """
 
 from __future__ import annotations
@@ -38,6 +49,7 @@ from uda_aerial_semantic_segmentation_research_tpu_torch.ops.channel_sums import
     channel_dual_sums,
     channel_sums,
 )
+from uda_aerial_semantic_segmentation_research_tpu_torch.parallel import distributed as dist
 from uda_aerial_semantic_segmentation_research_tpu_torch.utils.dtypes import to_f32
 
 EPS = 1e-5       # flax / torch default, as every BatchNorm of the JAX package
@@ -92,6 +104,10 @@ class _BNTrain(torch.autograd.Function):
     def forward(ctx, x, scale, bias, out_dtype):
         n = x.numel() // x.shape[1]
         s, q = channel_sums(x.movedim(1, -1))
+        if dist.is_initialized():
+            # the global batch's statistics: every process holds as many rows
+            s, q = dist.all_reduce_(torch.cat([s, q]), "bn_forward").chunk(2)
+            n *= dist.process_count()
         mean = s / n
         var = torch.clamp_min(q / n - mean * mean, 0.0)
         inv = torch.rsqrt(var + EPS)
@@ -112,8 +128,15 @@ class _BNTrain(torch.autograd.Function):
             dy = dy_last.movedim(-1, 1)
         sd, sdx = channel_dual_sums(dy_last, x.movedim(1, -1))
         centred = sdx - mean * sd
+        # this process's share of the parameter gradients: the gradient
+        # average over the processes adds the others' shares
         dscale = centred * inv         # sum(dy * xhat)
         dbias = sd
+        if dist.is_initialized():
+            # dx sees the global batch's sums (the statistics were global)
+            sd, sdx = dist.all_reduce_(torch.cat([sd, sdx]), "bn_backward").chunk(2)
+            centred = sdx - mean * sd
+            n *= dist.process_count()
         # dx = a*dy + cx*x + d: the BN input gradient with the two sums
         # substituted analytically
         a = inv * scale

@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from uda_aerial_semantic_segmentation_research_tpu_torch.parallel import distributed as dist
 from uda_aerial_semantic_segmentation_research_tpu_torch.utils.dtypes import to_f32
 
 
@@ -26,7 +27,8 @@ def sigmoid_bce_with_logits(logits, labels):
     return loss.mean()
 
 
-def softmax_cross_entropy(logits, labels, class_weights=None, reduction="mean"):
+def softmax_cross_entropy(logits, labels, class_weights=None, reduction="mean",
+                          over_ranks: bool = False):
     """Per-pixel CE over channel-last logits.
 
     ``logits``: (..., C) float; ``labels``: (...) int.  A label outside
@@ -36,6 +38,12 @@ def softmax_cross_entropy(logits, labels, class_weights=None, reduction="mean"):
     divides by the summed weights of the realized labels
     (``F.cross_entropy(weight=...)`` semantics).  ``reduction``: ``"mean"``,
     ``"sum"``, anything else returns the per-pixel loss.
+
+    ``over_ranks`` (a data-parallel train step's rows of the global batch):
+    the class-weighted mean is that of the global batch, its two sums taken
+    over the processes (``parallel.distributed.sum_over_ranks``); the other
+    reductions are means over rows already, which the gradient average
+    makes global.
     """
     logp = torch.log_softmax(to_f32(logits), dim=-1)
     labels = labels.long()
@@ -48,7 +56,10 @@ def softmax_cross_entropy(logits, labels, class_weights=None, reduction="mean"):
         w = torch.as_tensor(class_weights, dtype=logp.dtype, device=logits.device)[idx]
         nll = nll * w
         if reduction == "mean":
-            return nll.sum() / torch.clamp_min(w.sum(), 1e-12)
+            num, den = nll.sum(), w.sum()
+            if over_ranks and dist.is_initialized():
+                num, den = dist.sum_over_ranks(torch.stack([num, den])).unbind()
+            return num / torch.clamp_min(den, 1e-12)
     if reduction == "mean":
         return nll.mean()
     if reduction == "sum":
@@ -145,16 +156,23 @@ class SMPDiceLoss:
         self.smooth = float(smooth)
         self.eps = float(eps)
 
-    def __call__(self, predictions, targets):
+    def __call__(self, predictions, targets, over_ranks: bool = False):
         """``predictions``: (B, H, W, C) logits; ``targets``: (B, H, W) int
-        or (B, H, W, C) one-hot."""
+        or (B, H, W, C) one-hot.  ``over_ranks`` (a data-parallel train
+        step's rows of the global batch): the per-class sums are the global
+        batch's, taken over the processes
+        (``parallel.distributed.sum_over_ranks``)."""
         probs, targets = _probs_and_targets(predictions, targets)
         dims = tuple(range(predictions.ndim - 1))                 # batch + space
         intersection = (probs * targets).sum(dim=dims)             # (C,)
         cardinality = (probs + targets).sum(dim=dims)
+        counts = targets.sum(dim=dims)
+        if over_ranks and dist.is_initialized():
+            intersection, cardinality, counts = dist.sum_over_ranks(
+                torch.stack([intersection, cardinality, counts])).unbind()
         score = (2.0 * intersection + self.smooth) / torch.clamp_min(
             cardinality + self.smooth, self.eps)
-        present = (targets.sum(dim=dims) > 0).to(torch.float32)
+        present = (counts > 0).to(torch.float32)
         return ((1.0 - score) * present).mean()
 
 

@@ -70,9 +70,13 @@ def binary_entropy(probs):
 
 
 def _host(x) -> np.ndarray:
-    if isinstance(x, torch.Tensor):
-        return x.detach().float().cpu().numpy()
-    return np.asarray(x)
+    """``x`` on the host through ``parallel.distributed.host_array``: a
+    tensor (float32) with every process's rows, anything else as it is."""
+    from uda_aerial_semantic_segmentation_research_tpu_torch.parallel.distributed import (
+        host_array,
+    )
+
+    return host_array(x.detach().float() if isinstance(x, torch.Tensor) else x)
 
 
 class DomainAdaptationMetrics:
@@ -82,7 +86,10 @@ class DomainAdaptationMetrics:
     tensors are read back).  Source counts as correct when p >= 0.5, target
     when p < 0.5; domain confusion is the mean binary entropy of each
     update's source and target probabilities together, averaged over
-    updates.
+    updates.  Under a process group a tensor input is this process's rows
+    and the rows of every process are gathered (``host_array``), so the
+    accumulators are the global batch's, the same on every process; a
+    numpy input is taken as the whole batch.
     """
 
     def __init__(self):

@@ -9,8 +9,11 @@ the host; a short target batch is cycled to the source batch's size.
 
 As in the phase-1 trainer (``training/train.py``): the models train in
 place, batches reach the device through ``prefetch_to_device``, the
-augmentation's draws come from one ``torch.Generator`` per epoch, and a
-step's metrics are read back (in one read) while the next step is queued.
+augmentation's draws come from one ``torch.Generator`` per epoch, a step's
+metrics are read back (in one read) while the next step is queued, and
+under a process group each process trains on its rows of the global batch
+(``_setup_mesh``), the domain metrics gather every process's
+probabilities and validation runs the whole set on every process.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from uda_aerial_semantic_segmentation_research_tpu_torch.ops.losses import Adver
 from uda_aerial_semantic_segmentation_research_tpu_torch.ops.metrics import (
     DomainAdaptationMetrics,
 )
+from uda_aerial_semantic_segmentation_research_tpu_torch.parallel import distributed as dist
 from uda_aerial_semantic_segmentation_research_tpu_torch.training import steps as step_lib
 from uda_aerial_semantic_segmentation_research_tpu_torch.training.state import (
     AdversarialState,
@@ -62,7 +66,7 @@ def match_batch_size(arr, b: int):
 
 
 class AdversarialTrainer(SegmentationTrainer):
-    """Adversarial UDA trainer (phase 2) on one device."""
+    """Adversarial UDA trainer (phase 2), one device per process."""
 
     def __init__(self, model: torch.nn.Module, device=None, lambda_adv: float = 0.001):
         super().__init__(model, device)
@@ -98,13 +102,15 @@ class AdversarialTrainer(SegmentationTrainer):
         generator = self._epoch_generator(epoch)
 
         def log_pending(global_step, batch_idx, metrics):
-            """Read back (one read) and log one already-queued step."""
-            b = metrics["source_domain_prob"].numel()
+            """Read back (one read) and log one already-queued step; the
+            probabilities of every process's rows."""
+            src_prob = dist.gather_rows(metrics["source_domain_prob"])
+            tgt_prob = dist.gather_rows(metrics["target_domain_prob"])
+            b = src_prob.numel()
             values = torch.cat([
                 torch.stack([metrics[k].float() for k in ("loss", "seg_loss", "d_loss",
                                                           "adv_loss")]),
-                metrics["source_domain_prob"].reshape(-1),
-                metrics["target_domain_prob"].reshape(-1)]).tolist()
+                src_prob.reshape(-1), tgt_prob.reshape(-1)]).tolist()
             loss, seg_loss, d_loss, adv_loss = values[:4]
             self.domain_metrics.update(np.float32(values[4:4 + b]),
                                        np.float32(values[4 + b:]))
@@ -139,7 +145,8 @@ class AdversarialTrainer(SegmentationTrainer):
     def validate(self, dataloader, state: Optional[AdversarialState] = None):
         """Source-val CE, IoU and accuracy as ``(loss, {"iou", "accuracy"})``
         floats (means over batches).  ``state`` is accepted for the JAX
-        signature: the models train in place."""
+        signature: the models train in place (``_local_eval_variables``).
+        The whole set on every process, with no collective."""
         del state
         self._build_steps()
         total_loss, ious, accs, n = 0.0, [], [], 0
@@ -165,6 +172,7 @@ class AdversarialTrainer(SegmentationTrainer):
         self._lr = float(learning_rate)
         state = AdversarialState(seg=TrainState(self.model, adam(learning_rate)),
                                  disc=TrainState(self.discriminator, adam(learning_rate)))
+        state = self._setup_mesh(source_dataloader, state)
 
         best_valid_loss = float("inf")
         patience_counter = 0

@@ -17,12 +17,15 @@ same contract:
   domain_confusion > 0.4 and iou > 0.45), transitions and checkpoint GC.
 
 The model is an ``nn.Module`` (the U-Net, or a ``DomainAdaptationModel``,
-whose ``state_dict`` is already in the JAX layout).  Single process: the
-metadata is always written (the JAX package writes it on process 0).
+whose ``state_dict`` is already in the JAX layout).  Under a process group
+only process 0 creates the directories and writes checkpoints and metadata,
+as in the JAX package; the other processes keep the metadata in memory (the
+metrics are the global batch's, so the copies agree).
 """
 
 from __future__ import annotations
 
+import copy
 import datetime
 import json
 from enum import Enum, auto
@@ -36,6 +39,7 @@ from uda_aerial_semantic_segmentation_research_tpu_torch.models.convert import (
 from uda_aerial_semantic_segmentation_research_tpu_torch.models.domain_model import (
     DomainAdaptationModel,
 )
+from uda_aerial_semantic_segmentation_research_tpu_torch.parallel.distributed import is_primary
 from uda_aerial_semantic_segmentation_research_tpu_torch.utils.checkpoint import (
     load_checkpoint,
     save_checkpoint,
@@ -80,8 +84,9 @@ class PhaseManager:
         timestamp = datetime.datetime.now().strftime("%Y%m%d-%H%M%S-%f")
         self.experiment_dir = self.checkpoints_dir / timestamp
         self.phase_dirs = self._phase_dirs(self.experiment_dir)
-        for d in self.phase_dirs.values():
-            d.mkdir(parents=True, exist_ok=True)
+        if is_primary():
+            for d in self.phase_dirs.values():
+                d.mkdir(parents=True, exist_ok=True)
         self.metadata_path = self.experiment_dir / "training_metadata.json"
         self._initialize_metadata()
 
@@ -137,10 +142,15 @@ class PhaseManager:
         })
 
     def _save_metadata(self, metadata: Dict[str, Any]):
+        if not is_primary():
+            self._metadata = copy.deepcopy(metadata)
+            return
         with open(self.metadata_path, "w") as f:
             json.dump(metadata, f, indent=4)
 
     def _load_metadata(self) -> Dict[str, Any]:
+        if not is_primary() and getattr(self, "_metadata", None) is not None:
+            return copy.deepcopy(self._metadata)
         if self.metadata_path.exists():
             with open(self.metadata_path) as f:
                 return json.load(f)

@@ -14,9 +14,14 @@ the ``training_metadata.json`` lifecycle of ``PhaseManager``.
 gate).  ``resume_dir`` continues an experiment: completed phases are
 skipped and the weights -- the discriminator's too -- are restored.
 
-Single process: the JAX package's multi-process sharding of the loaders
-is not ported (``ROADMAP.md`` A.14).  Runs on ``Config.DEVICE`` (``cuda``
-unless the caller sets ``cpu``).
+Runs on ``Config.DEVICE`` (``cuda`` unless the caller sets ``cpu``).  On N
+GPUs, one process each (``UDA_TPU_MULTIHOST=1 torchrun --nproc-per-node=N
+-m ...training.pipeline ...``; the CLI calls ``parallel.distributed.initialize``
+first): every process builds the same split and loads its even share of the
+source training set and of the target set, ``batch_size`` is per process
+(the global batch is ``batch_size * N``), validation runs the whole set on
+every process, and process 0 writes the checkpoints, the metadata and the
+events.
 """
 
 from __future__ import annotations
@@ -26,14 +31,24 @@ import os
 from typing import Dict, Optional
 
 from uda_aerial_semantic_segmentation_research_tpu_torch.config import Config
+from uda_aerial_semantic_segmentation_research_tpu_torch.parallel import distributed as dist
 
 
-def _build_loaders(batch_size: int):
+def _build_loaders(batch_size: int, source=None, target=None):
     """(train, val, target) loaders: the sample source dataset split
     ``TRAIN_VAL_SPLIT`` with weighted sampling of its training part, and the
-    target images under ``TARGET_DATA_DIR`` shuffled, both ``drop_last``."""
+    target images under ``TARGET_DATA_DIR`` shuffled, both ``drop_last``.
+    ``source`` / ``target``: datasets to use instead of those files (the
+    source needs ``get_sampler(indices=...)``).
+
+    With several processes every process builds the same split and keeps
+    its contiguous even shard of the training indices (the weighted sampler
+    over the shard's indices) and of the target set: equal shards give every
+    process the same number of ``drop_last`` batches an epoch, so no process
+    runs a step whose collectives the others never join."""
     from uda_aerial_semantic_segmentation_research_tpu_torch.data.dataset import (
         DroneDataset,
+        Subset,
         random_split,
     )
     from uda_aerial_semantic_segmentation_research_tpu_torch.data.loader import DataLoader
@@ -41,16 +56,25 @@ def _build_loaders(batch_size: int):
         TargetDataset,
     )
 
-    source = DroneDataset(
-        images_dir=os.path.join(Config.SAMPLE_DATA_DIR, "original_images"),
-        masks_dir=os.path.join(Config.SAMPLE_DATA_DIR, "label_images_semantic"),
-        image_size=Config.IMAGE_SIZE, verbose=False)
+    if source is None:
+        source = DroneDataset(
+            images_dir=os.path.join(Config.SAMPLE_DATA_DIR, "original_images"),
+            masks_dir=os.path.join(Config.SAMPLE_DATA_DIR, "label_images_semantic"),
+            image_size=Config.IMAGE_SIZE, verbose=False)
     train_size = max(int(Config.TRAIN_VAL_SPLIT * len(source)), 1)
     train_ds, val_ds = random_split(
         source, [train_size, len(source) - train_size], seed=Config.SEED)
     sampler = source.get_sampler(indices=train_ds.indices)
-    target = TargetDataset(images_dir=Config.TARGET_DATA_DIR,
-                           target_size=(Config.IMAGE_SIZE, Config.IMAGE_SIZE), verbose=False)
+    if target is None:
+        target = TargetDataset(images_dir=Config.TARGET_DATA_DIR,
+                               target_size=(Config.IMAGE_SIZE, Config.IMAGE_SIZE),
+                               verbose=False)
+    if dist.process_count() > 1:
+        pos = dist.process_shard_indices(len(train_ds.indices), even=True)
+        shard_indices = [train_ds.indices[i] for i in pos]
+        train_ds = Subset(source, shard_indices)
+        sampler = source.get_sampler(indices=shard_indices)
+        target = dist.shard_dataset(target, even=True)
 
     train_loader = DataLoader(train_ds, batch_size=batch_size, sampler=sampler,
                               drop_last=True, num_workers=Config.NUM_WORKERS)
@@ -190,6 +214,9 @@ if __name__ == "__main__":
     a = p.parse_args()
     if a.device:
         Config.DEVICE = a.device
+    # env-gated multi-process entry (UDA_TPU_MULTIHOST / UDA_TPU_COORDINATOR),
+    # before the first device touch; a no-op single-process
+    dist.initialize()
     run_pipeline(phase1_epochs=a.phase1_epochs, phase2_epochs=a.phase2_epochs,
                  phase3_epochs=a.phase3_epochs, learning_rate=a.learning_rate,
                  batch_size=a.batch_size, lambda_adv=a.lambda_adv,

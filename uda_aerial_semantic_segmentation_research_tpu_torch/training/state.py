@@ -29,6 +29,8 @@ from typing import Optional
 
 import torch
 
+from uda_aerial_semantic_segmentation_research_tpu_torch.parallel import distributed as dist
+
 
 @dataclasses.dataclass(frozen=True)
 class Adam:
@@ -93,10 +95,17 @@ class TrainState:
 
         ``finite`` (a bool device tensor; ``skip_nonfinite`` states only):
         where it is false the parameters, the Adam moments and count, and
-        ``step`` stay bit-identical."""
+        ``step`` stay bit-identical.  Under a process group it must be the
+        same on every process (the steps take it from the global loss).
+
+        Under a process group (``parallel.distributed``) the gradients are
+        first averaged over the processes, in a few flat buckets, so that
+        the clip and the update see the global batch's gradient and every
+        process makes the same update."""
+        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
+        dist.average_gradients(grads)
         if self.clip_norm is not None:
-            clip_by_global_norm_([p.grad for p in self.model.parameters()
-                                  if p.grad is not None], self.clip_norm)
+            clip_by_global_norm_(grads, self.clip_norm)
         if finite is None:
             if self.skip_nonfinite:
                 raise ValueError("a skip_nonfinite state needs the finite flag")

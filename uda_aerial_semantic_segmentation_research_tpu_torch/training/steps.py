@@ -20,6 +20,29 @@ Properties shared by the steps:
   optimizer in place;
 - metrics (loss scalars and the confusion matrix) are returned as device
   tensors, and a step reads nothing back to the host itself.
+
+Under a process group (``parallel.distributed``: one process per device,
+each with its rows of the global batch, the JAX package's mesh) a train step
+makes the update of one process with the global batch, as the JAX step under
+a mesh does:
+
+- the augmentation's draws are the global batch's, drawn from the shared
+  generator (seeded alike on every process) in ``augment_batch``'s order,
+  and each process applies its rows' (``augment.sample_rows``); explicit
+  ``abc`` / ``params`` / ``draws`` are this process's rows' own;
+- BatchNorm statistics are the global batch's (``ops.batch_norm``), the
+  gradients are averaged before the clip (``TrainState.apply_gradients``),
+  and a loss that is not a mean over rows takes its sums over the processes
+  (the dice's per-class sums, the class-weighted CE);
+- the returned metrics are the global batch's
+  (``distributed.reduce_metrics``: loss scalars averaged, ``hist`` summed
+  and the scores recomputed from it), per-row outputs (the discriminator's
+  probabilities) stay this process's rows, and phase 3's ``finite`` is that
+  of the global loss, so every process keeps or drops the same update.
+
+The eval steps run on the batch they are given, with no collective: the
+trainers validate the whole set on every process, so their metrics are the
+global ones already.
 """
 
 from __future__ import annotations
@@ -37,6 +60,7 @@ from uda_aerial_semantic_segmentation_research_tpu_torch.ops.augment import (
     AugmentConfig,
     augment_batch,
     normalize_images,
+    sample_rows,
 )
 from uda_aerial_semantic_segmentation_research_tpu_torch.ops.batch_norm import (
     frozen_statistics,
@@ -56,6 +80,7 @@ from uda_aerial_semantic_segmentation_research_tpu_torch.ops.metrics import (
     confusion_matrix,
     iou_from_hist,
 )
+from uda_aerial_semantic_segmentation_research_tpu_torch.parallel import distributed as dist
 
 
 def model_device(model: torch.nn.Module) -> torch.device:
@@ -77,6 +102,16 @@ def _seg_metrics(logits, masks, num_classes: int):
 def _check_seg_loss(seg_loss: str) -> None:
     if seg_loss not in ("ce", "dice"):
         raise ValueError(f"seg_loss must be 'ce' or 'dice', got {seg_loss!r}")
+
+
+def _augment(generator, images, masks, cfg, abc=None, params=None):
+    """``augment_batch`` of this process's rows: with several processes and
+    no explicit draws, the global batch's draws restricted to them
+    (``sample_rows``); otherwise ``augment_batch`` itself."""
+    if abc is None and params is None and generator is not None and dist.process_count() > 1:
+        abc, params = sample_rows(generator, tuple(images.shape), cfg, masks is not None,
+                                  dist.process_index(), dist.process_count())
+    return augment_batch(generator, images, masks, cfg=cfg, abc=abc, params=params)
 
 
 # ---------------------------------------------------------------------------
@@ -114,12 +149,15 @@ def make_supervised_train_step(model: torch.nn.Module, num_classes: int,
         if fused_ce or class_weights is not None:
             raise ValueError(
                 "seg_loss='dice' supports neither fused_ce nor class_weights")
-        ce = SMPDiceLoss()
+        dice = SMPDiceLoss()
+
+        def ce(logits, m):
+            return dice(logits, m, over_ranks=True)
     elif fused_ce:
         ce = fused_cross_entropy
     else:
         def ce(logits, m):
-            return softmax_cross_entropy(logits, m, class_weights)
+            return softmax_cross_entropy(logits, m, class_weights, over_ranks=True)
 
     def step(state, generator, images, masks, abc=None, params=None):
         if state.model is not model:
@@ -128,8 +166,7 @@ def make_supervised_train_step(model: torch.nn.Module, num_classes: int,
         images = torch.as_tensor(images, device=device)
         masks = torch.as_tensor(masks, device=device)
         with torch.no_grad():
-            x, m = augment_batch(generator, images, masks, cfg=aug_cfg, abc=abc,
-                                 params=params)
+            x, m = _augment(generator, images, masks, aug_cfg, abc, params)
         model.train()
         state.optimizer.zero_grad(set_to_none=True)
         logits = model(x)
@@ -139,7 +176,7 @@ def make_supervised_train_step(model: torch.nn.Module, num_classes: int,
         with torch.no_grad():
             metrics = _seg_metrics(logits.detach(), m, num_classes)
         metrics["loss"] = loss.detach()
-        return state, metrics
+        return state, dist.reduce_metrics(metrics)
 
     return step
 
@@ -284,6 +321,12 @@ def make_scan_driver(step, unroll: int = 1):
     raises, and nothing falls back to eager calls.  Graphs of one scan driver
     share its capture stream's ``channel_sums`` scratch, so they replay one
     after another, on the caller's current stream.
+
+    Under a process group the graph holds the step's collectives: that needs
+    the NCCL backend, whose collectives a CUDA graph captures (the warm-up
+    runs them once eagerly, which sets up the communicator); under gloo,
+    which stages CUDA tensors through the host, the card raises.  Every
+    process must call the scan driver alike: replays run the collectives too.
     """
     if not isinstance(unroll, int) or unroll < 1:
         raise ValueError(f"unroll must be a positive int, got {unroll!r}")
@@ -309,6 +352,11 @@ def make_scan_driver(step, unroll: int = 1):
         if not all(st.capturable for st in states):
             raise ValueError("a CUDA graph of the steps needs states built with "
                              "TrainState(..., capturable=True)")
+        if dist.is_initialized() and torch.distributed.get_backend() != "nccl":
+            raise RuntimeError(
+                f"a CUDA graph of data-parallel steps captures their collectives, which "
+                f"needs the NCCL backend; the {torch.distributed.get_backend()} backend "
+                "stages CUDA tensors through the host and cannot be captured")
         key = (tuple((tuple(b.shape[1:]), b.dtype) for b in stacked), device, id(state),
                id(generator))
         entry = graphs.get(key)
@@ -407,12 +455,8 @@ def _source_target_inputs(model, generator, src_images, src_masks, tgt_images, a
     src_images, src_masks, tgt_images = _to_device(model_device(model), src_images,
                                                    src_masks, tgt_images)
     with torch.no_grad():
-        abc, params = _draws(draws, 0)
-        xs, ms = augment_batch(generator, src_images, src_masks, cfg=aug_cfg, abc=abc,
-                               params=params)
-        abc, params = _draws(draws, 1)
-        xt, _ = augment_batch(generator, tgt_images, None, cfg=aug_cfg, abc=abc,
-                              params=params)
+        xs, ms = _augment(generator, src_images, src_masks, aug_cfg, *_draws(draws, 0))
+        xt, _ = _augment(generator, tgt_images, None, aug_cfg, *_draws(draws, 1))
     return _cast(xs, xs_dtype), ms, _cast(xt, xt_dtype)
 
 
@@ -476,7 +520,7 @@ def make_adversarial_train_step(seg: torch.nn.Module, disc: torch.nn.Module,
         metrics = g_step(state.seg, xs, ms, xt)
         metrics.update({"d_loss": d_loss, "source_domain_prob": torch.sigmoid(s_logit),
                         "target_domain_prob": torch.sigmoid(t_logit)})
-        return state, metrics
+        return state, dist.reduce_metrics(metrics)
 
     step.programs = {"prep": prep, "d_step": d_step, "g_step": g_step}
     return step
@@ -575,16 +619,11 @@ def _unsup_inputs(state, seg, disc, generator, tgt_images, sup_images, sup_masks
     tgt_images, sup_images, sup_masks = _to_device(model_device(seg), tgt_images, sup_images,
                                                    sup_masks)
     with torch.no_grad():
-        views = []
-        for i in range(2):
-            abc, params = _draws(draws, i)
-            views.append(_cast(augment_batch(generator, tgt_images, None, cfg=aug_cfg, abc=abc,
-                                             params=params)[0], view_dtype))
+        views = [_cast(_augment(generator, tgt_images, None, aug_cfg, *_draws(draws, i))[0],
+                       view_dtype) for i in range(2)]
         xs = ms = None
         if with_supervised:
-            abc, params = _draws(draws, 2)
-            xs, ms = augment_batch(generator, sup_images, sup_masks, cfg=WEAK, abc=abc,
-                                   params=params)
+            xs, ms = _augment(generator, sup_images, sup_masks, WEAK, *_draws(draws, 2))
     return tgt_images, views[0], views[1], _cast(xs, view_dtype), ms
 
 
@@ -655,10 +694,10 @@ def make_unsupervised_train_step(seg: torch.nn.Module, disc: torch.nn.Module,
         losses = loss_fn(p1, p2, domain_logits, epoch, supervised_pred=sup_pred,
                          supervised_target=ms)
         losses["total"].backward()
-        finite = torch.isfinite(losses["total"])
+        metrics = dist.reduce_metrics({k: v.detach() for k, v in losses.items()})
+        finite = torch.isfinite(metrics["total"])
         _finish_unsup(state, finite, buffers, kept)
 
-        metrics = {k: v.detach() for k, v in losses.items()}
         metrics["finite"] = finite
         metrics["domain_prob"] = torch.sigmoid(domain_logits.detach())
         return state, metrics
@@ -740,11 +779,13 @@ def make_unsupervised_sequential_step(seg: torch.nn.Module, disc: torch.nn.Modul
         total = cons_v * ftl.consistency_weight * r + dom_v * ftl.domain_weight * r
         if with_supervised:
             total = total + sup_v * ftl.supervised_weight
-        finite = torch.isfinite(total)
+        metrics = dist.reduce_metrics({"total": total, "consistency": cons_v,
+                                       "domain_confusion": dom_v, "supervised": sup_v,
+                                       "rampup_weight": r})
+        finite = torch.isfinite(metrics["total"])
         _finish_unsup(state, finite, buffers, kept)
-        return {"total": total, "consistency": cons_v, "domain_confusion": dom_v,
-                "supervised": sup_v, "rampup_weight": r, "finite": finite,
-                "domain_prob": torch.sigmoid(domain_logits)}
+        metrics.update(finite=finite, domain_prob=torch.sigmoid(domain_logits))
+        return metrics
 
     def step(state, generator, tgt_images, epoch, sup_images=None, sup_masks=None,
              draws=None):
@@ -780,9 +821,12 @@ def make_unsupervised_sequential_step(seg: torch.nn.Module, disc: torch.nn.Modul
 # ---------------------------------------------------------------------------
 # the GRL stack: one model, one optimizer, the domain head behind a GRL
 # ---------------------------------------------------------------------------
-def _grl_seg_loss(seg_loss: str):
+def _grl_seg_loss(seg_loss: str, over_ranks: bool = False):
     _check_seg_loss(seg_loss)
-    return SMPDiceLoss() if seg_loss == "dice" else softmax_cross_entropy
+    if seg_loss == "ce":
+        return softmax_cross_entropy
+    dice = SMPDiceLoss()
+    return lambda logits, m: dice(logits, m, over_ranks=over_ranks)
 
 
 def _domain_acc(d_src, d_tgt):
@@ -824,7 +868,7 @@ def make_grl_sequential_step(model: torch.nn.Module, num_classes: int,
     Metrics (device tensors): ``loss``, ``seg_loss``, ``domain_loss``,
     ``domain_acc`` and the segmentation metrics.
     """
-    seg_loss_fn = _grl_seg_loss(seg_loss)
+    seg_loss_fn = _grl_seg_loss(seg_loss, over_ranks=True)
     lam = lambda_domain
 
     def step(state, generator, src_images, src_masks, tgt_images, alpha, draws=None):
@@ -845,8 +889,9 @@ def make_grl_sequential_step(model: torch.nn.Module, num_classes: int,
         ((lam / 2.0) * dl_tgt).backward()
         state.apply_gradients()
         domain_loss = (dl_src + dl_tgt.detach()) / 2.0
-        return state, _grl_metrics(seg, ms, num_classes, sl + lam * domain_loss, sl,
-                                   domain_loss, _domain_acc(d_src, d_tgt.detach()))
+        return state, dist.reduce_metrics(_grl_metrics(
+            seg, ms, num_classes, sl + lam * domain_loss, sl, domain_loss,
+            _domain_acc(d_src, d_tgt.detach())))
 
     return step
 

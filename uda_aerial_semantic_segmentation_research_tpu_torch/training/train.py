@@ -10,7 +10,7 @@ Counterpart of the JAX package's ``training/train.py``:
 - ``train_model``         the standalone training entry point (and CLI)
 
 The trainer is an epoch loop around one train step and one eval step
-(``training.steps``) on a single device.  It keeps the JAX trainer's
+(``training.steps``) on one device per process.  It keeps the JAX trainer's
 behaviour: the metrics of step N are read back while step N+1 is queued
 (one step of lag), validation reports per-batch means plus the exact
 ``iou_epoch`` of the summed confusion matrix, early stopping with the JAX
@@ -30,6 +30,16 @@ steps.  Differences, by design:
 - the three figures (confusion matrix, ROC and precision-recall curves)
   are drawn in numpy (``visualization.figures``), progress is printed
   without tqdm, and the three scalars of a step come back in one read.
+
+Data parallelism (the JAX trainer's mesh): under a process group
+(``parallel.distributed.initialize``; ``train_model`` calls it) each process
+trains on its loader's batches as its rows of the global batch, through the
+same steps, whose collectives make the update of the global batch; the
+trainer checks that every process starts from the same state
+(``_setup_mesh``).  Validation runs the whole set on every process with no
+collective, so early stopping and checkpoint selection agree everywhere;
+process 0 alone writes checkpoints and events, and the training figures
+(whose batch is one process's) are drawn only without a group.
 """
 
 from __future__ import annotations
@@ -54,6 +64,8 @@ from uda_aerial_semantic_segmentation_research_tpu_torch.models.convert import (
 )
 from uda_aerial_semantic_segmentation_research_tpu_torch.ops.losses import DiceLoss
 from uda_aerial_semantic_segmentation_research_tpu_torch.ops.metrics import iou_from_hist
+from uda_aerial_semantic_segmentation_research_tpu_torch.parallel import distributed as dist
+from uda_aerial_semantic_segmentation_research_tpu_torch.parallel.mesh import default_mesh
 from uda_aerial_semantic_segmentation_research_tpu_torch.training import steps as step_lib
 from uda_aerial_semantic_segmentation_research_tpu_torch.training.state import (
     TrainState,
@@ -192,6 +204,22 @@ class EarlyStopping:
         return rates
 
 
+def _local_eval_variables(model: torch.nn.Module) -> torch.nn.Module:
+    """The weights a process's validation runs with: ``model`` itself.
+
+    The JAX trainer pulls a host copy of the replicated global arrays
+    before its per-process validation, because global arrays cannot mix
+    with process-local batches in one program.  Here every process holds
+    its own tensors, the same on every process, so the identity."""
+    return model
+
+
+def data_parallel_mesh():
+    """The data-parallel mesh when there are several processes, else None
+    (the trainers' ``_setup_mesh`` / ``_engage_mesh``)."""
+    return default_mesh() if dist.process_count() > 1 else None
+
+
 def _raw_batches(dataloader, device=None, depth: int = 2):
     """Yield raw (uint8 images NHWC, int masks NHW) batches: the loader's
     raw path when it has one, else its batches as they come.  With
@@ -221,7 +249,7 @@ def _scalars(*tensors) -> List[float]:
 
 
 class SegmentationTrainer:
-    """Phase-1 supervised trainer on one device."""
+    """Phase-1 supervised trainer, one device per process."""
 
     def __init__(self, model: torch.nn.Module, device=None, log_dir: Optional[str] = None):
         """``model``: the module ``create_model`` returns, moved to ``device``
@@ -232,6 +260,7 @@ class SegmentationTrainer:
         self.logger = TensorboardLogger(log_dir=log_dir or Config.LOGS_DIR)
         self.current_epoch = 0
         self.timer: Optional[StepTimer] = None       # the last epoch's step times
+        self._mesh = None  # set by _setup_mesh when data parallelism engages
         self._train_step = None
         self._eval_step = None
         self._predict_step = step_lib.make_predict_step(model)
@@ -240,6 +269,26 @@ class SegmentationTrainer:
         """The augmentation's generator for ``epoch`` (module docstring)."""
         seed = np.random.SeedSequence([Config.SEED, epoch]).generate_state(1, np.uint64)[0]
         return torch.Generator(device=self.device).manual_seed(int(seed) & ((1 << 63) - 1))
+
+    # ------------------------------------------------------------------
+    # data parallelism across processes (the JAX trainer's mesh)
+    # ------------------------------------------------------------------
+    def _setup_mesh(self, dataloader, state):
+        """Engage the data-parallel mesh when there are several processes.
+
+        Each process drives one device, its loader yields its rows of the
+        global batch, and the steps' collectives do the rest; ``state`` is
+        checked to be the same on every process (``replicate_global``).
+        The JAX trainer's ``_place`` has no counterpart: with one device a
+        process, a loader's batch already is this process's rows, and
+        ``_raw_batches`` puts it on the device."""
+        self._mesh = data_parallel_mesh()
+        if self._mesh is None:
+            return state
+        print(f"Data-parallel mesh engaged: {self._mesh.size} devices over "
+              f"{dist.process_count()} process(es), "
+              f"{getattr(dataloader, 'batch_size', None)} samples/device")
+        return dist.replicate_global(state, self._mesh)
 
     def _build_steps(self):
         if self._train_step is None:
@@ -353,7 +402,9 @@ class SegmentationTrainer:
         self.logger.log_scalar("train/accuracy", acc, global_step)
         self.logger.log_scalar("train/learning_rate", self._lr, global_step)
 
-        if batch_idx % Config.LOG_INTERVAL == 0:
+        # the figures draw one process's batch: without a process group only
+        # (the scalars above are the global batch's)
+        if batch_idx % Config.LOG_INTERVAL == 0 and dist.process_count() == 1:
             self._log_figures(images, masks, metrics["hist"], global_step, "train")
             per_class = _host(metrics["per_class_iou"])
             for c in range(self.num_classes):
@@ -401,7 +452,7 @@ class SegmentationTrainer:
         before ``min_epochs``)."""
         self._build_steps()
         self._lr = float(learning_rate)
-        state = TrainState(self.model, adam(learning_rate))
+        state = self._setup_mesh(train_dataloader, TrainState(self.model, adam(learning_rate)))
 
         early_stopping = EarlyStopping(
             patience=patience, mode="max", min_epochs=10,
@@ -450,7 +501,11 @@ def train_model(epochs: Optional[int] = None, learning_rate: Optional[float] = N
     dataset split ``TRAIN_VAL_SPLIT`` with weighted sampling of the training
     part, the configured model, ``SegmentationTrainer.train``, and the final
     checkpoint under ``CHECKPOINT_DIR``.  Tiles are decoded at
-    ``Config.IMAGE_SIZE`` (through the native decoder where it is built)."""
+    ``Config.IMAGE_SIZE`` (through the native decoder where it is built).
+    It first calls ``parallel.distributed.initialize()``, which joins the
+    process group its environment names (``torchrun`` with
+    ``UDA_TPU_MULTIHOST=1``) and is a no-op otherwise; as in the JAX
+    package every process then loads the whole dataset."""
     from uda_aerial_semantic_segmentation_research_tpu_torch.data.dataset import (
         DroneDataset,
         random_split,
@@ -458,6 +513,7 @@ def train_model(epochs: Optional[int] = None, learning_rate: Optional[float] = N
     from uda_aerial_semantic_segmentation_research_tpu_torch.data.loader import DataLoader
     from uda_aerial_semantic_segmentation_research_tpu_torch.models import create_model
 
+    dist.initialize()  # env-gated multi-process entry; no-op single-process
     epochs = epochs or Config.NUM_EPOCHS
     learning_rate = learning_rate or Config.LEARNING_RATE
     batch_size = batch_size or Config.BATCH_SIZE

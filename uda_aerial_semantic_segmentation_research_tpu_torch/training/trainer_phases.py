@@ -25,9 +25,12 @@ and the augmentation draws from one ``torch.Generator`` per phase and
 epoch, seeded with ``SeedSequence([Config.SEED, phase, epoch])`` (the JAX
 trainer splits one key per step).  A step reads nothing back to the host;
 phase 2's ``domain_acc`` and phase 3's losses are read once, at the end of
-the epoch.  The JAX trainer's multi-device parts (``_engage_mesh``,
-``_place``, ``broadcast_from_primary``) are the identity on one device and
-are not ported (``ROADMAP.md`` A.14).
+the epoch.  Under a process group (``parallel.distributed``) each process
+trains on its rows of the global batch (``_engage_mesh``, the JAX
+trainer's), the steps' collectives make the global batch's update, and
+phase 2's validation scores -- taken on process-local target batches -- are
+process 0's on every process (``broadcast_from_primary``), so the
+checkpoint selection and the patience counter agree everywhere.
 """
 
 from __future__ import annotations
@@ -44,9 +47,9 @@ from uda_aerial_semantic_segmentation_research_tpu_torch.models.convert import (
 )
 from uda_aerial_semantic_segmentation_research_tpu_torch.ops.augment import (
     STRONG,
-    augment_batch,
     normalize_images,
 )
+from uda_aerial_semantic_segmentation_research_tpu_torch.parallel import distributed as dist
 from uda_aerial_semantic_segmentation_research_tpu_torch.training import steps as step_lib
 from uda_aerial_semantic_segmentation_research_tpu_torch.training.adversarial_trainer import (
     _cycle_raw,
@@ -59,6 +62,7 @@ from uda_aerial_semantic_segmentation_research_tpu_torch.training.state import (
 from uda_aerial_semantic_segmentation_research_tpu_torch.training.train import (
     _raw_batches,
     _scalars,
+    data_parallel_mesh,
 )
 from uda_aerial_semantic_segmentation_research_tpu_torch.utils.checkpoint import (
     save_checkpoint,
@@ -80,7 +84,8 @@ def _epoch_mean(values) -> float:
 
 
 class MultiPhaseTrainer:
-    """Three-phase UDA training of a ``UDASegmentationModel`` on one device."""
+    """Three-phase UDA training of a ``UDASegmentationModel``, one device per
+    process."""
 
     def __init__(self, model: torch.nn.Module, device=None,
                  checkpoint_dir: str = "checkpoints", num_classes: Optional[int] = None,
@@ -100,6 +105,7 @@ class MultiPhaseTrainer:
         self.checkpoint_dir.mkdir(parents=True, exist_ok=True)
         self.logger = TensorboardLogger(log_dir=log_dir or Config.LOGS_DIR)
         self._steps: dict = {}
+        self._mesh = None
 
     def _generator(self, phase: int, epoch: int) -> torch.Generator:
         seed = np.random.SeedSequence([Config.SEED, phase, epoch]).generate_state(1, np.uint64)[0]
@@ -108,6 +114,17 @@ class MultiPhaseTrainer:
     def _state(self, lr: float) -> TrainState:
         """A fresh Adam over every parameter of the model."""
         return TrainState(self.model, adam(lr))
+
+    # ------------------------------------------------------------------
+    # data parallelism (the contract of SegmentationTrainer._setup_mesh,
+    # training/train.py)
+    # ------------------------------------------------------------------
+    def _engage_mesh(self, loader, state) -> TrainState:
+        """With several processes: the data-parallel mesh, and ``state``
+        checked to be the same on every process; a no-op otherwise."""
+        del loader
+        self._mesh = data_parallel_mesh()
+        return state if self._mesh is None else dist.replicate_global(state, self._mesh)
 
     # ------------------------------------------------------------------
     # step builders (cached per phase)
@@ -143,11 +160,8 @@ class MultiPhaseTrainer:
                 raise ValueError("the state belongs to another model than the step")
             tgt_images = torch.as_tensor(tgt_images, device=step_lib.model_device(model))
             with torch.no_grad():
-                views = []
-                for i in range(2):
-                    abc, params = step_lib._draws(draws, i)
-                    views.append(augment_batch(generator, tgt_images, None, cfg=STRONG,
-                                               abc=abc, params=params)[0])
+                views = [step_lib._augment(generator, tgt_images, None, STRONG,
+                                           *step_lib._draws(draws, i))[0] for i in range(2)]
                 x0 = normalize_images(tgt_images)
             model.train()
             state.optimizer.zero_grad(set_to_none=True)
@@ -159,8 +173,9 @@ class MultiPhaseTrainer:
             total = consistency + confusion_weight * confusion
             total.backward()
             state.apply_gradients()
-            return state, {"loss": total.detach(), "consistency": consistency.detach(),
-                           "confusion": confusion.detach()}
+            return state, dist.reduce_metrics({"loss": total.detach(),
+                                               "consistency": consistency.detach(),
+                                               "confusion": confusion.detach()})
 
         self._steps["p3"] = step
         return step
@@ -184,7 +199,7 @@ class MultiPhaseTrainer:
         """Returns the best validation IoU."""
         step = self._phase1_step()
         eval_step = step_lib.make_eval_step(self.model, self.num_classes, seg_loss="dice")
-        state = self._state(learning_rate)
+        state = self._engage_mesh(train_loader, self._state(learning_rate))
         best_iou, counter = -1.0, 0
         for epoch in range(1, epochs + 1):
             generator = self._generator(1, epoch)
@@ -224,7 +239,7 @@ class MultiPhaseTrainer:
         step = self._phase2_step()
         eval_step = step_lib.make_grl_eval_step(self.model, self.num_classes,
                                                 lambda_domain=self.lambda_domain)
-        state = self._state(learning_rate)
+        state = self._engage_mesh(source_loader, self._state(learning_rate))
         best_score, counter = -1.0, 0
         target_iter = _cycle_raw(target_loader, self.device)
         for epoch in range(1, epochs + 1):
@@ -259,7 +274,8 @@ class MultiPhaseTrainer:
     def _validate_phase2(self, val_loader, target_val_loader, eval_step) -> Dict[str, float]:
         """Per source-val batch a target-val batch from a fresh cycling
         iterator, matched to its size; means of ``iou``, ``accuracy``,
-        ``loss`` (dice + lambda * domain) and ``domain_acc``."""
+        ``loss`` (dice + lambda * domain) and ``domain_acc``, process 0's on
+        every process (the target batches may be process-local)."""
         keys = ("iou", "accuracy", "loss", "domain_acc")
         target_iter = _cycle_raw(target_val_loader)
         rows = []
@@ -269,7 +285,7 @@ class MultiPhaseTrainer:
             m = eval_step(images, masks, tgt_images)
             rows.append(_scalars(*(m[k] for k in keys)))
         means = [float(np.mean(col)) for col in zip(*rows)] if rows else [0.0] * len(keys)
-        return dict(zip(keys, means))
+        return dict(zip(keys, dist.broadcast_from_primary(means)))
 
     # ------------------------------------------------------------------
     # phase 3: consistency fine-tuning
@@ -280,7 +296,7 @@ class MultiPhaseTrainer:
         final model.  ``val_loader`` is accepted and unused: the reference
         validates nothing in phase 3."""
         step = self._phase3_step()
-        state = self._state(learning_rate)
+        state = self._engage_mesh(target_loader, self._state(learning_rate))
         last_loss = 0.0
         for epoch in range(1, epochs + 1):
             generator = self._generator(3, epoch)

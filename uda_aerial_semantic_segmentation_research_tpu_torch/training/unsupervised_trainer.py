@@ -28,6 +28,11 @@ the bf16 logits are exact, the bf16 carry rounds the KL targets:
 The step runs a ``Unet.clone`` carrying these options, which shares the
 model's parameters and buffers: ``self.model`` itself keeps its own remat
 and logits dtype for validation, prediction and checkpoints.
+
+Under a process group each process trains on its rows of the global batch
+(``_setup_mesh``, as the phase-1 trainer), the domain metrics
+gather every process's probabilities, and validation runs the whole set on
+every process.
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ from uda_aerial_semantic_segmentation_research_tpu_torch.ops.losses import FineT
 from uda_aerial_semantic_segmentation_research_tpu_torch.ops.metrics import (
     DomainAdaptationMetrics,
 )
+from uda_aerial_semantic_segmentation_research_tpu_torch.parallel import distributed as dist
 from uda_aerial_semantic_segmentation_research_tpu_torch.training import steps as step_lib
 from uda_aerial_semantic_segmentation_research_tpu_torch.training.state import (
     TrainState,
@@ -75,7 +81,7 @@ def resolve_phase3_options(device, remat="auto", sequential: Optional[bool] = No
 
 
 class UnsupervisedTrainer(SegmentationTrainer):
-    """Unsupervised consistency fine-tuning (phase 3) on one device."""
+    """Unsupervised consistency fine-tuning (phase 3), one device per process."""
 
     def __init__(self, model, device=None, consistency_weight: float = 1.0,
                  domain_weight: float = 0.1, supervised_weight: float = 0.1,
@@ -159,7 +165,7 @@ class UnsupervisedTrainer(SegmentationTrainer):
             """Read back (one read) and log one already-queued step."""
             nonlocal total_loss, n
             values = torch.cat([torch.stack([metrics[k].float() for k in _LOSS_NAMES]),
-                                metrics["domain_prob"].reshape(-1)]).tolist()
+                                dist.gather_rows(metrics["domain_prob"]).reshape(-1)]).tolist()
             losses = dict(zip(_LOSS_NAMES, values))
             probs = np.float32(values[len(_LOSS_NAMES):])
             # phase 3 has no source batch: both slots see the target probabilities
@@ -213,7 +219,9 @@ class UnsupervisedTrainer(SegmentationTrainer):
     def validate(self, dataloader, state: Optional[TrainState] = None):
         """Labelled source-val ``{"iou", "accuracy", "loss"}``, means over the
         batches, logged every ``log_interval`` batches.  ``state`` is
-        accepted for the JAX signature: the models train in place."""
+        accepted for the JAX signature: the models train in place
+        (``_local_eval_variables``).  The whole set on every process, with
+        no collective."""
         del state
         self._build_steps()
         total_iou, accs, losses, n = 0.0, [], [], 0
@@ -242,7 +250,7 @@ class UnsupervisedTrainer(SegmentationTrainer):
         if patience is not None:
             self.patience = patience
         self._lr = float(learning_rate)
-        state = self._make_state(learning_rate)
+        state = self._setup_mesh(target_dataloader, self._make_state(learning_rate))
         for epoch in range(1, epochs + 1):
             self.current_epoch = epoch
             state, train_loss, train_metrics = self.train_epoch(

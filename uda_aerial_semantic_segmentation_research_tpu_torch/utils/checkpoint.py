@@ -46,7 +46,16 @@ def _to_numpy(obj: Any) -> Any:
 
 
 def save_checkpoint(obj: Any, path: str | os.PathLike) -> None:
-    """Atomically pickle ``obj`` (arrays converted to numpy) to ``path``."""
+    """Atomically pickle ``obj`` (arrays converted to numpy) to ``path``.
+
+    Under a process group only process 0 writes (the training state is the
+    same on every process; N writers of one file would be wasted IO)."""
+    from uda_aerial_semantic_segmentation_research_tpu_torch.parallel.distributed import (
+        is_primary,
+    )
+
+    if not is_primary():
+        return
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     payload = _to_numpy(obj)

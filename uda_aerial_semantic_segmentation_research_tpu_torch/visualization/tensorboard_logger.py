@@ -333,14 +333,24 @@ class TensorboardLogger:
     """Writes scalars/images/figures/histograms/text to a timestamped run dir."""
 
     def __init__(self, log_dir: str = "logs"):
+        from uda_aerial_semantic_segmentation_research_tpu_torch.parallel.distributed import (
+            is_primary,
+        )
+
         timestamp = datetime.datetime.now().strftime("%Y%m%d-%H%M%S-%f")
         self.log_dir = Path(log_dir) / timestamp
+        # under a process group only process 0 writes events (the metrics are
+        # the global batch's, the same on every process); the others' loggers
+        # take every call and drop it
+        self._closed = not is_primary()
+        self.path = self._file = None
+        if self._closed:
+            return
         self.log_dir.mkdir(parents=True, exist_ok=True)
         name = (f"events.out.tfevents.{int(time.time()):010d}.{socket.gethostname()}"
                 f".{os.getpid()}.{next(_UID)}")
         self.path = self.log_dir / name
         self._file = open(self.path, "wb")
-        self._closed = False
         self._file.write(_record(_event(time.time(), file_version="brain.Event:2")))
         self._file.flush()
 
