@@ -10,6 +10,7 @@
         # dihedral_normalize.cu, at the train step's shape, in turns
     python3 chip_smoke.py --only-scan      # only: 3c and phases 15-16
     python3 chip_smoke.py --only-dist      # only: phase 17
+    python3 chip_smoke.py --only-spatial   # only: phase 18
 
 1. prints the card (``nvidia-smi`` name and power limit);
 2. builds the port's four CUDA libraries from ``csrc/`` with nvcc, all
@@ -83,7 +84,7 @@
    model (plain versions), WEAK in float32 with the same seeded draws
    (made once on the host);
 8. prints one JSON line of kernel results (launches summed over the main
-   paths of 4, 5, 6, 9, 10, 11, 12, 13 and 14), the card line again, and last
+   paths of 4, 5, 6 and 9-18), the card line again, and last
    ``{"ok": true, "device": {...}}``.
 9. (after 7, before 8 prints; in a spawned process of its own, whose
    launch counts 8 adds in) drives the phase-1 trainer,
@@ -308,6 +309,32 @@
    checkpoints, metadata and events.  A rank that fails or does not finish
    in time fails the run.  The two-rank times are printed as correctness
    runs: two ranks share one card and gloo stages through the host.
+18. (after 17, in a spawned process of its own, which spawns four ranks)
+   the height-sharded eval forward (``parallel.spatial.spatial_forward``)
+   over four gloo ranks sharing the card (``local_device_ids=[0]``; NCCL
+   refuses two ranks on one card).  The resnet34 U-Net at 23 classes with
+   ``fused_eval=True``, seeded weights and randomized BatchNorm statistics:
+   in bf16 one 4096 x 4096 tile over a (1, 4) mesh and a B=2 batch of 2048 x
+   2048 tiles over a (2, 2) mesh, each rank's block within 2e-2 of the
+   largest |logit| of the unsharded forward of its images, which each rank
+   runs alone on the card, with argmax agreeing on at least 99.5% of its
+   pixels; in float32 (TF32 off) 512 px over (1, 4) and (2, 2), 32 px
+   (whole levels) over (1, 4) and a ``"dilated"`` module (run as the naive
+   one) within 1e-5 of the largest |logit|.  In every case each block is bit
+   for bit a one-process witness of the ranks' arithmetic: the same forward
+   with every conv computed as the ranks' row blocks with their halo rows
+   (cuDNN's algorithms at the ranks' shapes, which move bf16 roundings and
+   so argmax on near-tied logits).  Each ``conv_bn_relu`` launch of the
+   sharded forward, on the rank's rows with the neighbours' rows attached
+   (up to 1026 x 4096), is held against the kernel's plain version on the
+   same inputs at phase 3's tolerance.  Every rank's block on the card in
+   the expected shape, finite, 2 ``conv_bn_relu`` launches and nothing else
+   a forward, the same exchanges on every rank, and where every level is
+   split one halo all-reduce per window layer (45).  A gaps line comes
+   before the checks;
+   a ``phase 18`` line prints the exchanges (calls, bytes) a forward, the
+   level plan and the wall times with the card, as correctness runs: four
+   ranks share one card and gloo stages through the host.
 The script's own wall time is printed before the ``kernels`` line.
 
 Any failed check raises and the script exits non-zero; without a CUDA
@@ -4562,6 +4589,328 @@ def dist_phase(card) -> dict:
             return json.load(f)
 
 
+# ---------------------------------------------------------------------------
+# 18. the height-sharded forward (parallel.spatial) across four gloo ranks
+# ---------------------------------------------------------------------------
+SPATIAL_RANKS, SPATIAL_TIMEOUT_S = 4, 300.0
+# (label, mesh (n_data, n_space), global batch, tile px, dtype, fused_decoder)
+SPATIAL_CASES = (("bf16_4096_mesh1x4", (1, 4), 1, 4096, "bfloat16", "auto"),
+                 ("bf16_2048_mesh2x2", (2, 2), 2, 2048, "bfloat16", "auto"),
+                 ("f32_512_mesh1x4", (1, 4), 2, 512, "float32", "auto"),
+                 ("f32_512_mesh2x2", (2, 2), 2, 512, "float32", "auto"),
+                 ("f32_32_mesh1x4", (1, 4), 2, 32, "float32", "auto"),
+                 ("f32_512_dilated_mesh1x4", (1, 4), 2, 512, "float32", "dilated"))
+SPATIAL_BF16_TOL = 2e-2              # of the largest |logit|, against the plain forward
+SPATIAL_F32_TOL = 1e-5               # the JAX test's bound
+# bf16 argmax against the plain forward: the one-process witness of the ranks'
+# row blocks, which the blocks equal bit for bit, reads 99.648% there at
+# (2, 2) too: cuDNN's bf16 algorithms at the ranks' shapes (PERF.md)
+SPATIAL_ARGMAX_AGREEMENT = 0.995
+SPATIAL_SETTINGS = ("CLASSES", "SPATIAL_RANKS", "SPATIAL_TIMEOUT_S", "SPATIAL_CASES")
+
+
+def spatial_tile(case_index: int, b: int, size: int) -> np.ndarray:
+    """The case's normalized float32 tile (ImageNet statistics), made from a
+    seed on every rank alike: the full host value ``spatial_forward`` takes."""
+    rng = np.random.default_rng(SEED + 180 + case_index)
+    x = rng.integers(0, 256, (b, size, size, 3), dtype=np.uint8).astype(np.float32) / 255.0
+    mean = np.asarray((0.485, 0.456, 0.406), np.float32)
+    std = np.asarray((0.229, 0.224, 0.225), np.float32)
+    return (x - mean) / std
+
+
+def row_block_conv2d(n_space):
+    """``F.conv2d`` that computes its output as ``n_space`` row blocks, each
+    from its input rows plus the halo rows a rank fetches (zeros beyond the
+    edges), as a channels_last tensor of that shape: the ranks' arithmetic in
+    one process.  A level the ranks compute whole (rows not divisible, or an
+    odd block into a stride-2 layer) is computed whole."""
+    from torch.nn.modules.utils import _pair
+
+    real = F.conv2d
+
+    def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1):
+        kh, (sh, _), (ph, pw) = weight.shape[2], _pair(stride), _pair(padding)
+        h = x.shape[2] // n_space
+        if x.shape[2] % n_space or (sh == 2 and h % 2):
+            return real(x, weight, bias, stride, padding, dilation, groups)
+        above, below = ph, (kh - 1 - ph if sh == 1 else max(0, kh - ph - 2))
+        xp = F.pad(x, (0, 0, above, below))
+        blocks = [real(xp[:, :, s * h:s * h + h + above + below].contiguous(
+            memory_format=torch.channels_last), weight, bias, stride, (0, pw), dilation,
+            groups) for s in range(n_space)]
+        return torch.cat(blocks, 2)
+
+    return conv2d
+
+
+class KernelCalls:
+    """Stands in for ``models.unet``'s ``conv_bn_relu`` (the counted wrapper,
+    called through) and keeps the inputs and output of each launch while
+    ``recording``; :meth:`check` gives each one's largest gap to
+    ``conv_bn_relu_reference`` on the same inputs and whether it is within
+    phase 3's tolerance (``TOL``, atol and rtol as ``assert_close``)."""
+
+    def __init__(self, real):
+        self.real, self.recording, self.calls = real, False, []
+
+    def __call__(self, x, k3, scale=None, shift=None, **kwargs):
+        y = self.real(x, k3, scale, shift, **kwargs)
+        if self.recording:
+            self.calls.append((x, k3, scale, shift, y))
+        return y
+
+    def check(self):
+        from uda_aerial_semantic_segmentation_research_tpu_torch.ops.conv_bn_relu import (
+            conv_bn_relu_reference,
+        )
+
+        out = []
+        for x, k3, scale, shift, y in self.calls:
+            y, ref = y.float(), conv_bn_relu_reference(x, k3, scale, shift).float()
+            tol = TOL[x.dtype]
+            out.append({"shape": list(x.shape), "dtype": str(x.dtype).split(".")[-1],
+                        "max_abs_err": (y - ref).abs().max().item(),
+                        "within": bool(((y - ref).abs() <= tol + tol * ref.abs()).all())})
+        self.calls = []
+        return out
+
+
+def _spatial_rank(rank, d):
+    """One rank of phase 18 (a spawned process): gloo, the card shared with
+    the other ranks.  Writes ``rank<r>.pt``."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from uda_aerial_semantic_segmentation_research_tpu_torch.models import create_unet
+    from uda_aerial_semantic_segmentation_research_tpu_torch.models import unet as unet_module
+    from uda_aerial_semantic_segmentation_research_tpu_torch.models.resnet import Conv2d
+    from uda_aerial_semantic_segmentation_research_tpu_torch.parallel import distributed as dist
+    from uda_aerial_semantic_segmentation_research_tpu_torch.parallel import spatial
+
+    sys.stdout = sys.stderr = open(os.path.join(d, f"rank{rank}.log"), "w", buffering=1)
+    real_conv2d = F.conv2d
+    settings = torch.load(os.path.join(d, "inputs.pt"), weights_only=False)["settings"]
+    globals().update(settings)
+    counters = kernel_counters()
+    dist.initialize("file://" + os.path.join(d, "store"), SPATIAL_RANKS, rank,
+                    local_device_ids=[0], device="cuda", backend="gloo",
+                    timeout=SPATIAL_TIMEOUT_S)
+    out = {}
+    kernel_calls = unet_module.conv_bn_relu = KernelCalls(unet_module.conv_bn_relu)
+    try:
+        # every process creates every space group, in the same order
+        meshes = {shape: spatial.spatial_mesh(*shape)
+                  for shape in dict.fromkeys(c[1] for c in SPATIAL_CASES)}
+        models = {}
+        for dtype_name in ("bfloat16", "float32"):
+            net = create_unet("resnet34", classes=CLASSES, seed=SEED,
+                              dtype=getattr(torch, dtype_name), device="cuda", fused_eval=True)
+            randomize_batch_norms_(net, torch.Generator().manual_seed(SEED))
+            models[dtype_name] = net
+        window_convs = sum(isinstance(m, Conv2d) and m.kernel_size[0] > 1
+                           for m in models["float32"].modules())
+        for i, (label, shape, batch, size, dtype_name, fused_decoder) in enumerate(
+                SPATIAL_CASES):
+            mesh = meshes[shape]
+            net = models[dtype_name]
+            module = net if fused_decoder == "auto" else net.clone(fused_decoder=fused_decoder)
+            x = spatial_tile(i, batch, size)
+            rows_b, rows_h = spatial.spatial_image_sharding(mesh).block(x.shape)
+            torch.cuda.synchronize()
+            reset_counts(counters)
+            dist.all_reduce_.counts.clear()
+            kernel_calls.recording = True
+            t0 = time.perf_counter()
+            block = spatial.spatial_forward(module, None, x, mesh)
+            torch.cuda.synchronize()
+            sharded_ms = (time.perf_counter() - t0) * 1e3
+            kernel_calls.recording = False
+            launches = read_counts(counters)
+            collectives = {k: list(v) for k, v in dist.all_reduce_.counts.items()}
+            # each launch of the sharded forward (the rank's rows with the
+            # neighbours' attached) against the kernel's plain version
+            kernel_checks = kernel_calls.check()
+            # the unsharded forward of the naive module, in this process
+            # alone, of the images this rank holds: the reference
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                ref = net(torch.from_numpy(x[rows_b]).to("cuda"))
+            torch.cuda.synchronize()
+            whole_ms = (time.perf_counter() - t0) * 1e3
+            with torch.inference_mode():
+                # the witness: the same forward with every conv in the ranks'
+                # row blocks and halos (cuDNN's algorithms at their shapes)
+                F.conv2d = row_block_conv2d(mesh.n_space)
+                try:
+                    witness = net(torch.from_numpy(x[rows_b]).to("cuda"))[:, rows_h].float()
+                finally:
+                    F.conv2d = real_conv2d
+            own, got = ref[:, rows_h].float(), block.float()
+            largest = ref.float().abs().max().item()
+            err = (got - own).abs().max().item()
+
+            def agreement(a, b):
+                return (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+
+            out[label] = {
+                "device": str(block.device), "dtype": str(block.dtype),
+                "shape": list(block.shape), "coords": [mesh.data_index, mesh.space_index],
+                "max_abs_err": err, "largest_abs_logit": largest, "rel_err": err / largest,
+                "argmax_agreement": agreement(got, own),
+                "witness": {
+                    "max_abs_err": (got - witness).abs().max().item(),
+                    "rel_err": (got - witness).abs().max().item() / largest,
+                    "argmax_agreement": agreement(got, witness),
+                    "witness_vs_whole_rel_err": (witness - own).abs().max().item() / largest,
+                    "witness_vs_whole_argmax_agreement": agreement(witness, own)},
+                "finite": bool(torch.isfinite(got).all().item()),
+                "launches": launches, "collectives": collectives,
+                "kernel_checks": kernel_checks,
+                "sharded_ms": sharded_ms, "whole_ms": whole_ms,
+                "levels_split": spatial.Shard(mesh, size, size, 3).split,
+                "window_layers": window_convs + 1}
+            del block, ref, own, got, witness
+            torch.cuda.empty_cache()
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        torch.save(out, os.path.join(d, f"rank{rank}.pt"))
+    finally:
+        unet_module.conv_bn_relu = kernel_calls.real
+        dist.shutdown()
+
+
+def drive_spatial(card) -> dict:
+    """Phase 18: four gloo ranks sharing the card run ``spatial_forward``
+    (see main); the checks come after a line of the gaps."""
+    import multiprocessing
+    import tempfile as _tempfile
+
+    out = {"card": card, "timing_note": "four ranks share one card and gloo stages "
+           "through the host: correctness runs, not performance figures"}
+    with _tempfile.TemporaryDirectory(prefix="uda_spatial_") as d:
+        torch.save({"settings": {k: globals()[k] for k in SPATIAL_SETTINGS}},
+                   os.path.join(d, "inputs.pt"))
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=_spatial_rank, args=(r, d)) for r in range(SPATIAL_RANKS)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + SPATIAL_TIMEOUT_S
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 1.0))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * SPATIAL_RANKS:
+            for r in range(SPATIAL_RANKS):
+                log = os.path.join(d, f"rank{r}.log")
+                if os.path.exists(log):
+                    with open(log) as f:
+                        print(f"18 rank {r} log (end):\n{f.read()[-3000:]}", flush=True)
+            raise AssertionError(f"18: ranks exited with {codes} (a rank that fails or "
+                                 "hangs fails the run)")
+        ranks = [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False)
+                 for r in range(SPATIAL_RANKS)]
+        out["ranks_wall_s"] = time.perf_counter() - t0
+    labels = [c[0] for c in SPATIAL_CASES]
+    gaps = {label: {"rel_err": max(r[label]["rel_err"] for r in ranks),
+                    "max_abs_err": max(r[label]["max_abs_err"] for r in ranks),
+                    "largest_abs_logit": ranks[0][label]["largest_abs_logit"],
+                    "argmax_agreement": min(r[label]["argmax_agreement"] for r in ranks),
+                    "against_the_ranks_arithmetic": {
+                        k: (min if "agreement" in k else max)(r[label]["witness"][k]
+                                                              for r in ranks)
+                        for k in ranks[0][label]["witness"]},
+                    "conv_bn_relu_max_abs_err": [
+                        max(r[label]["kernel_checks"][i]["max_abs_err"] for r in ranks)
+                        for i in range(len(ranks[0][label]["kernel_checks"]))]}
+            for label in labels}
+    print(f"phase 18 gaps (sharded against the whole forward, worst rank): "
+          f"{json.dumps(gaps)}", flush=True)
+    launches = {k: 0 for k in ranks[0][labels[0]]["launches"]}
+    for label, shape, batch, size, dtype_name, _ in SPATIAL_CASES:
+        n_data, n_space = shape
+        for r in ranks:
+            res = r[label]
+            expected_shape = [batch // n_data, size // n_space, size, CLASSES]
+            if res["shape"] != expected_shape or not res["device"].startswith("cuda"):
+                raise AssertionError(f"18 {label}: block {res['shape']} on {res['device']}, "
+                                     f"expected {expected_shape} on the card")
+            if not res["finite"]:
+                raise AssertionError(f"18 {label}: non-finite logits")
+            if res["launches"] != {**{k: 0 for k in res["launches"]}, "conv_bn_relu": 2}:
+                raise AssertionError(f"18 {label}: launches {res['launches']}, expected 2 "
+                                     "conv_bn_relu and nothing else")
+            bad = [c for c in res["kernel_checks"] if not c["within"]]
+            if bad:
+                raise AssertionError(f"18 {label}: conv_bn_relu against its plain version "
+                                     f"beyond {TOL[getattr(torch, dtype_name)]} (atol and "
+                                     f"rtol) at {bad}")
+            if res["collectives"] != ranks[0][label]["collectives"]:
+                raise AssertionError(f"18 {label}: the ranks' exchanges differ")
+            if all(res["levels_split"]) and res["collectives"] != {
+                    "halo": [res["window_layers"], res["collectives"]["halo"][1]]}:
+                raise AssertionError(f"18 {label}: {res['collectives']}, expected one halo "
+                                     f"exchange for each of {res['window_layers']} window layers")
+            for k, v in res["launches"].items():
+                launches[k] += v
+        tol = SPATIAL_F32_TOL if dtype_name == "float32" else SPATIAL_BF16_TOL
+        if not gaps[label]["rel_err"] <= tol:
+            raise AssertionError(f"18 {label}: sharded against the whole forward "
+                                 f"{gaps[label]['rel_err']} of the largest |logit|, bound {tol}")
+        witness_err = gaps[label]["against_the_ranks_arithmetic"]["max_abs_err"]
+        if witness_err != 0.0:
+            raise AssertionError(f"18 {label}: sharded against the ranks' arithmetic "
+                                 f"{witness_err}, expected bit for bit")
+        if dtype_name == "bfloat16" and not (
+                gaps[label]["argmax_agreement"] >= SPATIAL_ARGMAX_AGREEMENT):
+            raise AssertionError(f"18 {label}: argmax agrees with the whole forward on "
+                                 f"{gaps[label]['argmax_agreement']}, bound "
+                                 f"{SPATIAL_ARGMAX_AGREEMENT}")
+    out["cases"] = {label: {
+        "gaps": gaps[label], "levels_split": ranks[0][label]["levels_split"],
+        "collectives_per_rank": ranks[0][label]["collectives"],
+        "conv_bn_relu_per_rank": ranks[0][label]["launches"]["conv_bn_relu"],
+        "sharded_ms": [r[label]["sharded_ms"] for r in ranks],
+        "whole_ms_one_process": [r[label]["whole_ms"] for r in ranks]} for label in labels}
+    out["peak_gib_per_rank"] = [r["peak_gib"] for r in ranks]
+    out["launches"] = launches
+    print(f"phase 18 (spatial_forward, four gloo ranks on one card): {json.dumps(out)}",
+          flush=True)
+    return out
+
+
+def _spatial_child(card, path) -> None:
+    t0 = time.perf_counter()
+    result = drive_spatial(card)
+    result["wall_s"] = time.perf_counter() - t0
+    with open(path, "w") as f:
+        json.dump(result, f)
+
+
+def spatial_phase(card) -> dict:
+    """Phase 18 in a fresh process of its own (not a pool's daemon: it spawns
+    the four ranks).  A child that fails or does not finish in time fails the
+    run."""
+    import multiprocessing
+    import tempfile as _tempfile
+
+    torch.cuda.empty_cache()
+    with _tempfile.TemporaryDirectory(prefix="uda_phase18_") as d:
+        path = os.path.join(d, "result.json")
+        child = multiprocessing.get_context("spawn").Process(target=_spatial_child,
+                                                             args=(card, path))
+        child.start()
+        child.join(2 * SPATIAL_TIMEOUT_S)
+        if child.is_alive():
+            child.kill()
+            child.join()
+        if child.exitcode != 0:
+            raise AssertionError(f"phase 18: its process exited with {child.exitcode}")
+        with open(path) as f:
+            return json.load(f)
+
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -4579,6 +4928,8 @@ def main(argv=None) -> int:
                         help="only the kernels' capture checks (3c) and phases 15-16")
     parser.add_argument("--only-dist", action="store_true",
                         help="only phase 17 (data parallelism across processes)")
+    parser.add_argument("--only-spatial", action="store_true",
+                        help="only phase 18 (the height-sharded forward across processes)")
     args = parser.parse_args(argv)
     t_script = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4648,6 +4999,13 @@ def main(argv=None) -> int:
         dist_result = dist_phase(card)
         dist_result["process_wall_s"] = time.perf_counter() - t0
         print(json.dumps({"dist": dist_result}), flush=True)
+        print(card_line())
+        return 0
+    if args.only_spatial:
+        t0 = time.perf_counter()
+        spatial_result = spatial_phase(card)
+        spatial_result["process_wall_s"] = time.perf_counter() - t0
+        print(json.dumps({"spatial": spatial_result}), flush=True)
         print(card_line())
         return 0
     if args.only_scan:
@@ -4989,11 +5347,19 @@ def main(argv=None) -> int:
     dist_counts = dist_result["launches"]
     print(json.dumps({"dist": dist_result}), flush=True)
 
+    # 18. the height-sharded forward across processes, in a process of its own
+    #     that spawns the four ranks
+    t0 = time.perf_counter()
+    spatial_result = spatial_phase(card)
+    spatial_result["process_wall_s"] = time.perf_counter() - t0        # spawn to result
+    spatial_counts = spatial_result["launches"]
+    print(json.dumps({"spatial": spatial_result}), flush=True)
+
     # 8. results
     total = {k: serving_counts[k] + train_counts[k] + eval_counts[k] + trainer_counts[k]
              + pipeline_counts[k] + multiphase_counts[k] + system_counts[k]
              + production_counts[k] + architectures_counts.get(k, 0) + scan_counts[k]
-             + dist_counts.get(k, 0) for k in counters}
+             + dist_counts.get(k, 0) + spatial_counts.get(k, 0) for k in counters}
     if min(total.values()) == 0:
         raise AssertionError(f"a kernel never launched on the main paths: {total}")
     src = f"{PORT}/csrc"
@@ -5107,13 +5473,15 @@ def main(argv=None) -> int:
         names = (("channel_sums", "channel_dual_sums") if entry["name"] == "channel_sums"
                  else (entry["name"],))
         entry["launches_phase17"] = sum(dist_counts.get(n, 0) for n in names)
+        entry["launches_phase18"] = sum(spatial_counts.get(n, 0) for n in names)
     print(f"chip_smoke wall time: {time.perf_counter() - t_script:.1f} s (phase 11 with "
           f"its process: {multiphase_result['process_wall_s']:.1f} s, phase 12: "
           f"{system_result['process_wall_s']:.1f} s, phase 13: "
           f"{production_result['process_wall_s']:.1f} s, phase 14: "
           f"{architectures_result['process_wall_s']:.1f} s, phases 15-16: "
           f"{scan_result['process_wall_s']:.1f} s, phase 17: "
-          f"{dist_result['process_wall_s']:.1f} s)", flush=True)
+          f"{dist_result['process_wall_s']:.1f} s, phase 18: "
+          f"{spatial_result['process_wall_s']:.1f} s)", flush=True)
     print(json.dumps({"kernels": entries}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -7,9 +7,7 @@
   ``create_model`` the same parameter tree, and the seed where JAX has it);
 - every package whose JAX counterpart has an ``__all__`` exports the same
   names, less those ``ROADMAP.md`` lists as not ported (``ModelBundle``,
-  ``AsyncPytreeCheckpointer``, ``pallas_ops``, and the height-sharded
-  forward of ``parallel``: ``spatial_mesh``, ``spatial_image_sharding``,
-  ``spatial_forward``, ``ROADMAP.md`` A.14b).
+  ``AsyncPytreeCheckpointer``, ``pallas_ops``).
 """
 
 import importlib
@@ -35,8 +33,7 @@ from uda_aerial_semantic_segmentation_research_tpu_torch.models import (
 
 JAX = "uda_aerial_semantic_segmentation_research_tpu"
 PORT = f"{JAX}_torch"
-NOT_PORTED = {"ModelBundle", "AsyncPytreeCheckpointer", "pallas_ops",
-              "spatial_mesh", "spatial_image_sharding", "spatial_forward"}
+NOT_PORTED = {"ModelBundle", "AsyncPytreeCheckpointer", "pallas_ops"}
 PACKAGES = ["", "training", "inference", "data", "utils", "visualization", "models", "ops",
             "analysis", "parallel"]
 

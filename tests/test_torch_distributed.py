@@ -12,7 +12,8 @@ missing; the helpers that communicate (``broadcast_from_primary``,
 in both modes on the CPU: one supervised step across two processes against
 the same step in this process (loss 1e-5, every parameter within 2.5
 Adam steps: the Adam-sign rule of ``tests/test_torch_parallel.py``, whose
-gradients this result does not carry), and the three-phase pipeline on
+gradients this result does not carry) with the height-sharded forward's
+check across them (``spatial_ok``), and the three-phase pipeline on
 fixture files.
 """
 
@@ -293,7 +294,7 @@ def test_sum_over_ranks_and_gradient_buckets(collectives):
 def test_dryrun_multihost_step_matches_one_process(tmp_path):
     result = dist.dryrun_multihost(num_processes=WORLD, global_batch_size=8, device="cpu",
                                    out_dir=str(tmp_path), timeout=TIMEOUT_S)
-    assert result["spatial_ok"] is None              # the spatial slice is not ported
+    assert result["spatial_ok"] is True              # the height-sharded forward held
     model, metrics = dist._equivalence_step(8, "cpu")
     assert abs(float(metrics["loss"]) - result["loss"]) < 1e-5
     ref = to_jax_state_dict(model)

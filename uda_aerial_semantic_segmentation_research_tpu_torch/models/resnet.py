@@ -9,7 +9,9 @@ channels_last memory, so the NHWC view of every activation is free;
 Padding follows the JAX encoders exactly: torch-style symmetric ``k//2``
 for every conv (equal to SAME at stride 1; the JAX ``_tpad`` at the
 stride-2 stems and depthwise convs), max-pool 3/2 with -inf padding 1.
-Parameters are float32; activations run in ``dtype``.
+Parameters are float32; activations run in ``dtype``.  Under a
+height-sharded forward (``parallel.spatial``) the convs and the max-pool
+compute this rank's rows.
 
 ``remat`` (the JAX encoder's option, numerically the same network and the
 same parameters in every mode) recomputes activations in the backward
@@ -34,6 +36,7 @@ from uda_aerial_semantic_segmentation_research_tpu_torch.ops.batch_norm import (
     BatchNorm,
     checkpoint,
 )
+from uda_aerial_semantic_segmentation_research_tpu_torch.parallel.spatial import current_shard
 
 
 def _remat_stage_set(remat):
@@ -62,10 +65,15 @@ def norm_act(norm, x, relu, remat: bool = False):
 
 
 class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` with float32 parameters cast to the input's dtype."""
+    """``nn.Conv2d`` with float32 parameters cast to the input's dtype; on
+    this rank's rows under a height-sharded forward (``parallel.spatial``)."""
 
     def forward(self, x):
         bias = None if self.bias is None else self.bias.to(x.dtype)
+        shard = current_shard()
+        if shard is not None:
+            return shard.conv2d(x, self.weight.to(x.dtype), bias, self.stride, self.padding,
+                                self.groups)
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
@@ -165,7 +173,9 @@ class ResNetEncoder(nn.Module):
         feats = [x]
         y = torch.relu(self.stem_norm(self.stem_conv(x.to(self.dtype))))
         feats.append(y)                                          # /2
-        y = F.max_pool2d(y, 3, stride=2, padding=1)
+        shard = current_shard()
+        y = (F.max_pool2d(y, 3, stride=2, padding=1) if shard is None
+             else shard.max_pool2d(y, 3, 2, 1))
         remat_stages = _remat_stage_set(self.remat)
         for stage, names in enumerate(self.stages, 1):
             whole = (stage in remat_stages if remat_stages is not None

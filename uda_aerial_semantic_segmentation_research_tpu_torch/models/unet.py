@@ -39,8 +39,13 @@ with the JAX ``Unet``'s modes: ``True`` (encoder and decoder blocks),
 and ``"stageN..."`` (those encoder stages' blocks).  Every mode computes the
 same logits, gradients and BatchNorm buffers as ``remat=False``, and the
 parameter names do not change, so checkpoints interchange.  ``clone``
-gives the same network under another ``remat`` or ``logits_dtype``,
-sharing the parameters and buffers (the JAX ``module.clone``).
+gives the same network under another ``remat``, ``logits_dtype`` or
+``fused_decoder``, sharing the parameters and buffers (the JAX
+``module.clone``).
+
+Under a height-sharded forward (``parallel.spatial``) the decoder takes
+this rank's rows after an upsample from a whole level, and the
+``conv_bn_relu`` gate reads the level's global height.
 """
 
 from __future__ import annotations
@@ -70,6 +75,7 @@ from uda_aerial_semantic_segmentation_research_tpu_torch.ops.upsample_conv impor
     upsample2x_conv3x3,
     upsample2x_conv3x3_dilated,
 )
+from uda_aerial_semantic_segmentation_research_tpu_torch.parallel.spatial import current_shard
 
 FUSED_MAX_FILTERS = 32
 DILATED_MIN_SIZE = 128    # "dilated" below this input size keeps the naive schedule (JAX)
@@ -120,8 +126,12 @@ class DecoderBlock(nn.Module):
         # guard the fold against an exactly-zero BN scale, as the JAX fold
         inv = torch.where(inv.abs() < 1e-12, torch.full_like(inv, 1e-12), inv)
         k3 = self.conv2.weight.to(self.dtype).permute(2, 3, 1, 0)   # OIHW -> HWIO
+        # under a height-sharded forward: the neighbours' rows attached, their
+        # output rows dropped
+        shard = current_shard()
+        y, keep = shard.kernel_rows(y) if shard is not None else (y, slice(None))
         y2 = conv_bn_relu(y.permute(0, 2, 3, 1).contiguous(), k3, inv, shift)
-        return y2.permute(0, 3, 1, 2)
+        return y2.permute(0, 3, 1, 2)[:, :, keep]
 
     def _fused_conv1(self, x, skip, impl):
         w1 = self.conv1.weight.to(self.dtype)
@@ -133,16 +143,20 @@ class DecoderBlock(nn.Module):
 
     def forward(self, x, skip: Optional[torch.Tensor] = None, remat_norms: bool = False,
                 fused=None):
+        shard = current_shard()
         if fused:
             y = self._fused_conv1(x, skip, fused)
         else:
             y = F.interpolate(x.to(self.dtype), scale_factor=2, mode="nearest")
+            if shard is not None:      # from a whole level: this rank's rows
+                y = shard.own_rows(y)
             if skip is not None:
                 y = torch.cat([y, skip.to(self.dtype)], dim=1)
             y = self.conv1(y)
+        rows = y.shape[2] if shard is None else shard.global_rows(y)
         if (self.fused_eval and not self.training
                 and self.filters <= FUSED_MAX_FILTERS
-                and y.shape[2] % 2 == 0 and y.shape[3] % 2 == 0):
+                and rows % 2 == 0 and y.shape[3] % 2 == 0):
             return torch.relu(self.norm2(self._fused_conv2(y)))
         x = norm_act(self.norm1, y, True, remat_norms)
         return norm_act(self.norm2, self.conv2(x), True, remat_norms)
@@ -229,9 +243,10 @@ class Unet(nn.Module):
                                    fused=resolve_fused_decoder(fused_decoder))
         self.segmentation_head = conv(decoder_channels[-1], classes, 3, bias=True)
 
-    def clone(self, *, remat=_KEEP, logits_dtype=_KEEP) -> "Unet":
-        """This U-Net with another ``remat`` and/or ``logits_dtype``, for running
-        forwards and backwards only.  The options are the clone's own, so
+    def clone(self, *, remat=_KEEP, logits_dtype=_KEEP, fused_decoder=_KEEP) -> "Unet":
+        """This U-Net with another ``remat``, ``logits_dtype`` and/or
+        ``fused_decoder`` (the JAX ``module.clone``), for running forwards and
+        backwards only.  The options are the clone's own, so
         ``self`` computes as before; every parameter, buffer and block is
         ``self``'s, shared and not copied.  So module-state calls belong on
         ``self``: on the clone, ``.to()``, ``.half()``, ``register_buffer``
@@ -250,6 +265,11 @@ class Unet(nn.Module):
                 setattr(new, name, part)
         if logits_dtype is not _KEEP:
             new.logits_dtype = logits_dtype
+        if fused_decoder is not _KEEP:
+            part = copy.copy(new.decoder)
+            part.fused = resolve_fused_decoder(fused_decoder)
+            new.fused_decoder = fused_decoder
+            new.decoder = part
         return new
 
     def encode(self, x):

@@ -7,9 +7,10 @@ mesh.  PyTorch's counterpart is one process per GPU, each holding a copy of
 the state and feeding its rows of the global batch: ``distributed`` owns the
 process group and the collectives that the port places itself (BatchNorm
 sums, gradient average, global metrics); ``mesh`` is the 1-D data axis over
-the processes and its placement helpers.  The height-sharded forward of the
-JAX package (``spatial_mesh``, ``spatial_image_sharding``,
-``spatial_forward``) is not ported yet (``ROADMAP.md`` A.14b).
+the processes and its placement helpers; ``spatial`` is the height-sharded
+eval forward (``spatial_mesh``, ``spatial_image_sharding``,
+``spatial_forward``): a tile split by rows over the processes, each layer
+fetching its neighbours' boundary rows.
 """
 
 from uda_aerial_semantic_segmentation_research_tpu_torch.parallel import distributed
@@ -21,6 +22,11 @@ from uda_aerial_semantic_segmentation_research_tpu_torch.parallel.mesh import (
     replicated_sharding,
     shard_batch,
 )
+from uda_aerial_semantic_segmentation_research_tpu_torch.parallel.spatial import (
+    spatial_forward,
+    spatial_image_sharding,
+    spatial_mesh,
+)
 
 __all__ = [
     "create_mesh",
@@ -29,5 +35,8 @@ __all__ = [
     "replicated_sharding",
     "shard_batch",
     "replicate",
+    "spatial_mesh",
+    "spatial_image_sharding",
+    "spatial_forward",
     "distributed",
 ]

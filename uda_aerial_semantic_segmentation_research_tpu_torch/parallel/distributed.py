@@ -43,7 +43,8 @@ group of one process the collectives run and change no value.
 
 Collectives are counted by kind in ``all_reduce_.counts`` (calls and bytes
 of each kind: ``bn_forward``, ``bn_backward``, ``gradients``, ``metrics``,
-``loss_sums``, ``rows``, ``control``).
+``loss_sums``, ``rows``, ``control``; the height-sharded forward's boundary
+rows ``halo`` and whole levels ``level``, ``parallel.spatial``).
 
 Verification without a multi-GPU machine: :func:`dryrun_multihost` spawns N
 processes that meet through a ``file://`` store, runs the supervised train
@@ -455,13 +456,14 @@ def _count(kind: str, nbytes: int) -> None:
     all_reduce_.counts[kind] = (calls + 1, total + int(nbytes))
 
 
-def all_reduce_(t: torch.Tensor, kind: str) -> torch.Tensor:
-    """Sum ``t`` over the processes in place and return it; counted under
-    ``kind``.  Without a process group ``t`` is returned untouched."""
+def all_reduce_(t: torch.Tensor, kind: str, group=None) -> torch.Tensor:
+    """Sum ``t`` over the processes (of ``group``, default all) in place and
+    return it; counted under ``kind``.  Without a process group ``t`` is
+    returned untouched."""
     if not is_initialized():
         return t
     _count(kind, t.numel() * t.element_size())
-    tdist.all_reduce(t)
+    tdist.all_reduce(t, group=group)
     return t
 
 
@@ -610,6 +612,7 @@ def _worker_main(argv) -> None:
             _pipeline_worker(out_dir)
         else:
             model, metrics = _equivalence_step(global_b, device)
+            spatial_ok = _spatial_check(device)
             if is_primary():
                 from uda_aerial_semantic_segmentation_research_tpu_torch.models.convert import (
                     to_jax_state_dict,
@@ -618,14 +621,37 @@ def _worker_main(argv) -> None:
                     save_checkpoint,
                 )
 
-                # spatial_ok: the height-sharded forward waits for the spatial slice
                 save_checkpoint(
                     {"params": to_jax_state_dict(model), "loss": float(metrics["loss"]),
-                     "iou": float(metrics["iou"]), "spatial_ok": None},
+                     "iou": float(metrics["iou"]), "spatial_ok": spatial_ok},
                     os.path.join(out_dir, "multihost_result.pth"))
         barrier("dryrun_done")
     finally:
         shutdown()
+
+
+def _spatial_check(device) -> bool:
+    """The height-sharded forward with the space axis over every process:
+    the boundary rows cross the processes.  Every process computes the
+    unsharded forward itself and holds the gathered blocks against it
+    (resnet18 U-Net, 32 px, 7 classes, float32, the JAX check's input)."""
+    from uda_aerial_semantic_segmentation_research_tpu_torch.models import create_unet
+    from uda_aerial_semantic_segmentation_research_tpu_torch.parallel.spatial import (
+        gather_blocks,
+        spatial_forward,
+        spatial_mesh,
+    )
+
+    size, classes = 32, 7
+    model = create_unet("resnet18", classes=classes, seed=0, dtype=torch.float32,
+                        device=device)
+    mesh = spatial_mesh(1, process_count())        # height across every process
+    x = np.random.default_rng(5).normal(0, 1, (2, size, size, 3)).astype(np.float32)
+    with torch.inference_mode():
+        ref = model(torch.from_numpy(x).to(mesh.device)).cpu().numpy()
+    out = gather_blocks(spatial_forward(model, None, x, mesh), mesh).cpu().numpy()
+    np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5)
+    return True
 
 
 def _pipeline_worker(out_dir: str) -> None:
@@ -694,8 +720,9 @@ def dryrun_multihost(num_processes: int = 2, global_batch_size: int = 8,
     distributed work across them.
 
     ``mode="step"``: one data-parallel supervised step
-    (:func:`_equivalence_step` at ``global_batch_size``); returns process
-    0's ``{params, loss, iou, spatial_ok}``.  ``mode="pipeline"``: the
+    (:func:`_equivalence_step` at ``global_batch_size``) and the
+    height-sharded forward over every process (:func:`_spatial_check`);
+    returns process 0's ``{params, loss, iou, spatial_ok}``.  ``mode="pipeline"``: the
     three-phase pipeline at tiny shapes over the fixtures under the working
     directory; returns process 0's ``{final_phase, phases}``.
 
