@@ -10,7 +10,7 @@
         # dihedral_normalize.cu, at the train step's shape, in turns
     python3 chip_smoke.py --only-scan      # only: 3c and phases 15-16
     python3 chip_smoke.py --only-dist      # only: phase 17
-    python3 chip_smoke.py --only-spatial   # only: phase 18
+    python3 chip_smoke.py --only-spatial   # only: phases 18 and 18b
 
 1. prints the card (``nvidia-smi`` name and power limit);
 2. builds the port's four CUDA libraries from ``csrc/`` with nvcc, all
@@ -84,7 +84,7 @@
    model (plain versions), WEAK in float32 with the same seeded draws
    (made once on the host);
 8. prints one JSON line of kernel results (launches summed over the main
-   paths of 4, 5, 6 and 9-18), the card line again, and last
+   paths of 4, 5, 6 and 9-18b), the card line again, and last
    ``{"ok": true, "device": {...}}``.
 9. (after 7, before 8 prints; in a spawned process of its own, whose
    launch counts 8 adds in) drives the phase-1 trainer,
@@ -335,6 +335,27 @@
    a ``phase 18`` line prints the exchanges (calls, bytes) a forward, the
    level plan and the wall times with the card, as correctness runs: four
    ranks share one card and gloo stages through the host.
+18b. (after 18, in a spawned process of its own, which spawns four ranks)
+   ``spatial_forward`` of the other segmentation models over four gloo
+   ranks sharing the card: the seven other ``create_model`` families at
+   resnet34, DeepLabV3Plus at mobilenet_v2 and ``create_uda_model``'s
+   ``UDASegmentationModel`` (resnet50), 23 classes, seeded weights and
+   randomized BatchNorm statistics.  In float32 (TF32 off) 512 px at B=2
+   over (1, 4) and (2, 2) and 64 px over (1, 4) (the /32 level whole), each
+   rank's block within 1e-5 of the largest |logit| of the unsharded forward
+   of its images, which the rank runs alone; in bf16 one 2048 x 2048 tile
+   over (1, 4) within phase 18's 2e-2 of it, and bit for bit a one-process
+   witness of the ranks' arithmetic (every conv as the ranks' row blocks
+   with their halos, those inside ``spatial.whole`` on the whole level), so
+   argmax agrees with the witness on at least 99.5% of the rank's pixels;
+   the argmax against the plain forward is printed, not held (cuDNN's bf16
+   convs at the ranks' shapes move near-tied random-weight logits: 98.75%
+   for FPN, ``PERF.md``).  Every block on the card in the expected shape and
+   finite, the same exchanges on every rank, and no launch of any kernel
+   (none lies on these paths).  A gaps line comes before the checks; a
+   ``phase 18b`` line prints per model the halo, level and mean all-reduces
+   (calls, bytes) of a forward, a rank's peak memory in the sharded and in
+   the whole forward, and the wall times, as correctness runs.
 The script's own wall time is printed before the ``kernels`` line.
 
 Any failed check raises and the script exits non-zero; without a CUDA
@@ -704,13 +725,14 @@ def on_device(event) -> bool:
             and not getattr(event, "is_user_annotation", False))
 
 
-def device_events(fn, calls: int = 20, windows: int = 4):
+def device_events(fn, calls: int = 20, windows: int = 12):
     """(name, µs) of every device event (kernels, copies, fills) of ``calls``
     calls of ``fn`` under torch.profiler, after one call outside the window.
     A spin kernel on each side of the calls is left out.  The profiler can
-    drop events (a whole window's, at times) but never adds any: a window
-    is taken again, up to ``windows`` times, until its count is a whole
-    number of events per call, and the fullest window is returned."""
+    drop events (a whole window's, at times; one of 20 in each of four
+    windows in a row, once) but never adds any: a window is taken again, up
+    to ``windows`` times, until its count is a whole number of events per
+    call, and the fullest window is returned."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -4630,11 +4652,12 @@ def row_block_conv2d(n_space):
     real = F.conv2d
 
     def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1):
-        kh, (sh, _), (ph, pw) = weight.shape[2], _pair(stride), _pair(padding)
+        kh, (sh, _), (ph, pw), (dh, _) = (weight.shape[2], _pair(stride), _pair(padding),
+                                          _pair(dilation))
         h = x.shape[2] // n_space
         if x.shape[2] % n_space or (sh == 2 and h % 2):
             return real(x, weight, bias, stride, padding, dilation, groups)
-        above, below = ph, (kh - 1 - ph if sh == 1 else max(0, kh - ph - 2))
+        above, below = ph, (dh * (kh - 1) - ph if sh == 1 else max(0, kh - ph - 2))
         xp = F.pad(x, (0, 0, above, below))
         blocks = [real(xp[:, :, s * h:s * h + h + above + below].contiguous(
             memory_format=torch.channels_last), weight, bias, stride, (0, pw), dilation,
@@ -4778,19 +4801,20 @@ def _spatial_rank(rank, d):
         dist.shutdown()
 
 
-def drive_spatial(card) -> dict:
-    """Phase 18: four gloo ranks sharing the card run ``spatial_forward``
-    (see main); the checks come after a line of the gaps."""
+def _spawn_spatial_ranks(target, settings, tag) -> list:
+    """``target(rank, d)`` in ``SPATIAL_RANKS`` spawned processes that meet in
+    a temporary directory ``d`` holding ``inputs.pt`` (``settings``, the
+    module globals the ranks take over); each writes ``rank<r>.pt`` and its
+    log.  A rank that fails or does not finish in time fails the run, its
+    log printed.  Returns the ranks' results and their wall time."""
     import multiprocessing
     import tempfile as _tempfile
 
-    out = {"card": card, "timing_note": "four ranks share one card and gloo stages "
-           "through the host: correctness runs, not performance figures"}
     with _tempfile.TemporaryDirectory(prefix="uda_spatial_") as d:
-        torch.save({"settings": {k: globals()[k] for k in SPATIAL_SETTINGS}},
+        torch.save({"settings": {k: globals()[k] for k in settings}},
                    os.path.join(d, "inputs.pt"))
         ctx = multiprocessing.get_context("spawn")
-        procs = [ctx.Process(target=_spatial_rank, args=(r, d)) for r in range(SPATIAL_RANKS)]
+        procs = [ctx.Process(target=target, args=(r, d)) for r in range(SPATIAL_RANKS)]
         t0 = time.perf_counter()
         for p in procs:
             p.start()
@@ -4807,12 +4831,20 @@ def drive_spatial(card) -> dict:
                 log = os.path.join(d, f"rank{r}.log")
                 if os.path.exists(log):
                     with open(log) as f:
-                        print(f"18 rank {r} log (end):\n{f.read()[-3000:]}", flush=True)
-            raise AssertionError(f"18: ranks exited with {codes} (a rank that fails or "
+                        print(f"{tag} rank {r} log (end):\n{f.read()[-3000:]}", flush=True)
+            raise AssertionError(f"{tag}: ranks exited with {codes} (a rank that fails or "
                                  "hangs fails the run)")
         ranks = [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False)
                  for r in range(SPATIAL_RANKS)]
-        out["ranks_wall_s"] = time.perf_counter() - t0
+        return ranks, time.perf_counter() - t0
+
+
+def drive_spatial(card) -> dict:
+    """Phase 18: four gloo ranks sharing the card run ``spatial_forward``
+    (see main); the checks come after a line of the gaps."""
+    out = {"card": card, "timing_note": "four ranks share one card and gloo stages "
+           "through the host: correctness runs, not performance figures"}
+    ranks, out["ranks_wall_s"] = _spawn_spatial_ranks(_spatial_rank, SPATIAL_SETTINGS, "18")
     labels = [c[0] for c in SPATIAL_CASES]
     gaps = {label: {"rel_err": max(r[label]["rel_err"] for r in ranks),
                     "max_abs_err": max(r[label]["max_abs_err"] for r in ranks),
@@ -4881,18 +4913,239 @@ def drive_spatial(card) -> dict:
     return out
 
 
-def _spatial_child(card, path) -> None:
+# ---------------------------------------------------------------------------
+# 18b. the other segmentation models' height-sharded forward, four gloo ranks
+# ---------------------------------------------------------------------------
+# (create_model name, or "UDA" for create_uda_model; encoder)
+FAMILY_SPATIAL_MODELS = (("FPN", "resnet34"), ("PSPNet", "resnet34"), ("Linknet", "resnet34"),
+                         ("UnetPlusPlus", "resnet34"), ("DeepLabV3Plus", "resnet34"),
+                         ("PAN", "resnet34"), ("MAnet", "resnet34"),
+                         ("DeepLabV3Plus", "mobilenet_v2"), ("UDA", "resnet50"))
+# (label, mesh (n_data, n_space), global batch, tile px, dtype)
+FAMILY_SPATIAL_CASES = (("f32_512_mesh1x4", (1, 4), 2, 512, "float32"),
+                        ("f32_512_mesh2x2", (2, 2), 2, 512, "float32"),
+                        ("f32_64_mesh1x4", (1, 4), 2, 64, "float32"),
+                        ("bf16_2048_mesh1x4", (1, 4), 1, 2048, "bfloat16"))
+FAMILY_SPATIAL_SETTINGS = ("CLASSES", "SPATIAL_RANKS", "SPATIAL_TIMEOUT_S",
+                           "FAMILY_SPATIAL_MODELS", "FAMILY_SPATIAL_CASES")
+
+
+def family_model(name, encoder, dtype, device):
+    """A seeded model of phase 18b with randomized BatchNorm statistics."""
+    from uda_aerial_semantic_segmentation_research_tpu_torch.models import (
+        create_model,
+        create_uda_model,
+    )
+
+    if name == "UDA":
+        net = create_uda_model(encoder, classes=CLASSES, seed=SEED, dtype=dtype, device=device)
+    else:
+        net = create_model(name, encoder, None, 3, CLASSES, seed=SEED, dtype=dtype,
+                           device=device)
+    randomize_batch_norms_(net, torch.Generator().manual_seed(SEED))
+    return net
+
+
+def family_label(name, encoder) -> str:
+    return name if encoder == "resnet34" else f"{name}_{encoder}"
+
+
+def family_witness(net, x, n_space):
+    """The unsharded forward of ``x`` with every convolution computed as the
+    ranks' ``n_space`` row blocks with their halos (``row_block_conv2d``),
+    but inside ``spatial.whole``, which the ranks run on the whole level:
+    the ranks' arithmetic in one process (their means and resizes are the
+    whole forward's but for the order of the means' float32 sums)."""
+    from uda_aerial_semantic_segmentation_research_tpu_torch.parallel import spatial
+
+    real_conv2d, real_whole = F.conv2d, spatial.whole
+
+    def whole(fn, t):
+        blocks, F.conv2d = F.conv2d, real_conv2d
+        try:
+            return fn(t)
+        finally:
+            F.conv2d = blocks
+
+    with torch.inference_mode():
+        F.conv2d, spatial.whole = row_block_conv2d(n_space), whole
+        try:
+            return net(torch.from_numpy(x).to("cuda")).float()
+        finally:
+            F.conv2d, spatial.whole = real_conv2d, real_whole
+
+
+def _family_spatial_rank(rank, d):
+    """One rank of phase 18b (a spawned process): gloo, the card shared with
+    the other ranks.  Writes ``rank<r>.pt``."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from uda_aerial_semantic_segmentation_research_tpu_torch.parallel import distributed as dist
+    from uda_aerial_semantic_segmentation_research_tpu_torch.parallel import spatial
+
+    sys.stdout = sys.stderr = open(os.path.join(d, f"rank{rank}.log"), "w", buffering=1)
+    settings = torch.load(os.path.join(d, "inputs.pt"), weights_only=False)["settings"]
+    globals().update(settings)
+    counters = kernel_counters()
+    dist.initialize("file://" + os.path.join(d, "store"), SPATIAL_RANKS, rank,
+                    local_device_ids=[0], device="cuda", backend="gloo",
+                    timeout=SPATIAL_TIMEOUT_S)
+    out = {}
+    try:
+        # every process creates every space group, in the same order
+        meshes = {shape: spatial.spatial_mesh(*shape)
+                  for shape in dict.fromkeys(c[1] for c in FAMILY_SPATIAL_CASES)}
+        for name, encoder in FAMILY_SPATIAL_MODELS:
+            res = out[family_label(name, encoder)] = {}
+            for dtype_name in ("float32", "bfloat16"):
+                net = family_model(name, encoder, getattr(torch, dtype_name), "cuda")
+                for i, (label, shape, batch, size, case_dtype) in enumerate(
+                        FAMILY_SPATIAL_CASES):
+                    if case_dtype != dtype_name:
+                        continue
+                    mesh = meshes[shape]
+                    x = spatial_tile(100 + i, batch, size)
+                    rows_b, rows_h = spatial.spatial_image_sharding(mesh).block(x.shape)
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    reset_counts(counters)
+                    dist.all_reduce_.counts.clear()
+                    t0 = time.perf_counter()
+                    block = spatial.spatial_forward(net, None, x, mesh)
+                    torch.cuda.synchronize()
+                    sharded_ms = (time.perf_counter() - t0) * 1e3
+                    sharded_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                    launches = read_counts(counters)
+                    collectives = {k: list(v) for k, v in dist.all_reduce_.counts.items()}
+                    # the unsharded forward of the rank's images, in this
+                    # process alone: the reference
+                    torch.cuda.reset_peak_memory_stats()
+                    t0 = time.perf_counter()
+                    with torch.inference_mode():
+                        ref = net(torch.from_numpy(x[rows_b]).to("cuda"))
+                    torch.cuda.synchronize()
+                    whole_ms = (time.perf_counter() - t0) * 1e3
+                    whole_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                    own, got = ref[:, rows_h].float(), block.float()
+                    largest = ref.float().abs().max().item()
+                    err = (got - own).abs().max().item()
+                    witness = (family_witness(net, x[rows_b], mesh.n_space)[:, rows_h]
+                               if dtype_name == "bfloat16" else None)
+                    res[label] = {
+                        "device": str(block.device), "shape": list(block.shape),
+                        "max_abs_err": err, "largest_abs_logit": largest,
+                        "rel_err": err / largest,
+                        "argmax_agreement": (got.argmax(-1) == own.argmax(-1)).float()
+                        .mean().item(),
+                        "finite": bool(torch.isfinite(got).all().item()),
+                        "launches": launches, "collectives": collectives,
+                        "sharded_ms": sharded_ms, "whole_ms": whole_ms,
+                        "sharded_peak_gib": sharded_peak, "whole_peak_gib": whole_peak,
+                        "levels_split": spatial.Shard(mesh, size, size, 3).split}
+                    if witness is not None:
+                        res[label]["witness"] = {
+                            "max_abs_err": (got - witness).abs().max().item(),
+                            "argmax_agreement": (got.argmax(-1) == witness.argmax(-1)).float()
+                            .mean().item(),
+                            "witness_vs_whole_rel_err": (witness - own).abs().max().item()
+                            / largest,
+                            "witness_vs_whole_argmax_agreement": (
+                                witness.argmax(-1) == own.argmax(-1)).float().mean().item()}
+                    del block, ref, own, got, witness
+                del net
+                torch.cuda.empty_cache()
+        torch.save(out, os.path.join(d, f"rank{rank}.pt"))
+    finally:
+        dist.shutdown()
+
+
+def drive_family_spatial(card) -> dict:
+    """Phase 18b: four gloo ranks sharing the card run ``spatial_forward`` of
+    the other segmentation models (see main); the gaps line and the
+    ``phase 18b`` line come before the checks."""
+    out = {"card": card, "timing_note": "four ranks share one card and gloo stages "
+           "through the host: correctness runs, not performance figures"}
+    ranks, out["ranks_wall_s"] = _spawn_spatial_ranks(_family_spatial_rank,
+                                                      FAMILY_SPATIAL_SETTINGS, "18b")
+    models = [family_label(*m) for m in FAMILY_SPATIAL_MODELS]
+    gaps = {m: {c[0]: {"rel_err": max(r[m][c[0]]["rel_err"] for r in ranks),
+                       "max_abs_err": max(r[m][c[0]]["max_abs_err"] for r in ranks),
+                       "largest_abs_logit": max(r[m][c[0]]["largest_abs_logit"]
+                                                for r in ranks),
+                       "argmax_agreement": min(r[m][c[0]]["argmax_agreement"]
+                                               for r in ranks),
+                       **({"against_the_ranks_arithmetic": {
+                           k: (min if "agreement" in k else max)(r[m][c[0]]["witness"][k]
+                                                                 for r in ranks)
+                           for k in ranks[0][m][c[0]]["witness"]}}
+                          if "witness" in ranks[0][m][c[0]] else {})}
+                for c in FAMILY_SPATIAL_CASES} for m in models}
+    print(f"phase 18b gaps (sharded against the whole forward, worst rank): "
+          f"{json.dumps(gaps)}", flush=True)
+    out["models"] = {m: {label: {
+        "levels_split": ranks[0][m][label]["levels_split"],
+        "collectives_per_rank": ranks[0][m][label]["collectives"],
+        "sharded_peak_gib": [r[m][label]["sharded_peak_gib"] for r in ranks],
+        "whole_peak_gib": [r[m][label]["whole_peak_gib"] for r in ranks],
+        "sharded_ms": [r[m][label]["sharded_ms"] for r in ranks],
+        "whole_ms_one_process": [r[m][label]["whole_ms"] for r in ranks]}
+        for label, *_ in FAMILY_SPATIAL_CASES} for m in models}
+    print(f"phase 18b (spatial_forward of the other models, four gloo ranks on one card): "
+          f"{json.dumps(out)}", flush=True)
+    launches = {k: 0 for k in ranks[0][models[0]][FAMILY_SPATIAL_CASES[0][0]]["launches"]}
+    for m in models:
+        for label, shape, batch, size, dtype_name in FAMILY_SPATIAL_CASES:
+            n_data, n_space = shape
+            expected_shape = [batch // n_data, size // n_space, size, CLASSES]
+            for r in ranks:
+                res = r[m][label]
+                if res["shape"] != expected_shape or not res["device"].startswith("cuda"):
+                    raise AssertionError(f"18b {m} {label}: block {res['shape']} on "
+                                         f"{res['device']}, expected {expected_shape} on "
+                                         "the card")
+                if not res["finite"]:
+                    raise AssertionError(f"18b {m} {label}: non-finite logits")
+                if any(res["launches"].values()):
+                    raise AssertionError(f"18b {m} {label}: launches {res['launches']}, "
+                                         "expected none")
+                if res["collectives"] != ranks[0][m][label]["collectives"]:
+                    raise AssertionError(f"18b {m} {label}: the ranks' exchanges differ")
+                for k, v in res["launches"].items():
+                    launches[k] += v
+            gap = gaps[m][label]
+            tol = SPATIAL_F32_TOL if dtype_name == "float32" else SPATIAL_BF16_TOL
+            if not gap["rel_err"] <= tol:
+                raise AssertionError(f"18b {m} {label}: sharded against the whole forward "
+                                     f"{gap['rel_err']} of the largest |logit|, bound {tol}")
+            if dtype_name == "bfloat16":
+                # the ranks' arithmetic in one process: bit for bit, so the
+                # gap to the plain forward is cuDNN's bf16 convs at the ranks'
+                # shapes, whose argmax against the plain forward is reported
+                witness = gap["against_the_ranks_arithmetic"]
+                if witness["max_abs_err"] != 0.0:
+                    raise AssertionError(f"18b {m} {label}: sharded against the ranks' "
+                                         f"arithmetic {witness['max_abs_err']}, expected bit "
+                                         "for bit")
+                if not witness["argmax_agreement"] >= SPATIAL_ARGMAX_AGREEMENT:
+                    raise AssertionError(f"18b {m} {label}: argmax agrees with the ranks' "
+                                         f"arithmetic on {witness['argmax_agreement']}, "
+                                         f"bound {SPATIAL_ARGMAX_AGREEMENT}")
+    out["launches"] = launches
+    return out
+
+
+def _spatial_child(card, path, drive) -> None:
     t0 = time.perf_counter()
-    result = drive_spatial(card)
+    result = drive(card)
     result["wall_s"] = time.perf_counter() - t0
     with open(path, "w") as f:
         json.dump(result, f)
 
 
-def spatial_phase(card) -> dict:
-    """Phase 18 in a fresh process of its own (not a pool's daemon: it spawns
-    the four ranks).  A child that fails or does not finish in time fails the
-    run."""
+def spatial_phase(card, drive=drive_spatial, tag="phase 18") -> dict:
+    """Phase 18 (or 18b: ``drive_family_spatial``) in a fresh process of its
+    own (not a pool's daemon: it spawns the four ranks).  A child that fails
+    or does not finish in time fails the run."""
     import multiprocessing
     import tempfile as _tempfile
 
@@ -4900,14 +5153,14 @@ def spatial_phase(card) -> dict:
     with _tempfile.TemporaryDirectory(prefix="uda_phase18_") as d:
         path = os.path.join(d, "result.json")
         child = multiprocessing.get_context("spawn").Process(target=_spatial_child,
-                                                             args=(card, path))
+                                                             args=(card, path, drive))
         child.start()
         child.join(2 * SPATIAL_TIMEOUT_S)
         if child.is_alive():
             child.kill()
             child.join()
         if child.exitcode != 0:
-            raise AssertionError(f"phase 18: its process exited with {child.exitcode}")
+            raise AssertionError(f"{tag}: its process exited with {child.exitcode}")
         with open(path) as f:
             return json.load(f)
 
@@ -4929,7 +5182,8 @@ def main(argv=None) -> int:
     parser.add_argument("--only-dist", action="store_true",
                         help="only phase 17 (data parallelism across processes)")
     parser.add_argument("--only-spatial", action="store_true",
-                        help="only phase 18 (the height-sharded forward across processes)")
+                        help="only phases 18 and 18b (the height-sharded forward across "
+                             "processes)")
     args = parser.parse_args(argv)
     t_script = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5006,6 +5260,10 @@ def main(argv=None) -> int:
         spatial_result = spatial_phase(card)
         spatial_result["process_wall_s"] = time.perf_counter() - t0
         print(json.dumps({"spatial": spatial_result}), flush=True)
+        t0 = time.perf_counter()
+        family_result = spatial_phase(card, drive_family_spatial, "phase 18b")
+        family_result["process_wall_s"] = time.perf_counter() - t0
+        print(json.dumps({"spatial_families": family_result}), flush=True)
         print(card_line())
         return 0
     if args.only_scan:
@@ -5355,11 +5613,20 @@ def main(argv=None) -> int:
     spatial_counts = spatial_result["launches"]
     print(json.dumps({"spatial": spatial_result}), flush=True)
 
+    # 18b. the other segmentation models' height-sharded forward, in a
+    #      process of its own that spawns the four ranks
+    t0 = time.perf_counter()
+    family_result = spatial_phase(card, drive_family_spatial, "phase 18b")
+    family_result["process_wall_s"] = time.perf_counter() - t0
+    family_counts = family_result["launches"]
+    print(json.dumps({"spatial_families": family_result}), flush=True)
+
     # 8. results
     total = {k: serving_counts[k] + train_counts[k] + eval_counts[k] + trainer_counts[k]
              + pipeline_counts[k] + multiphase_counts[k] + system_counts[k]
              + production_counts[k] + architectures_counts.get(k, 0) + scan_counts[k]
-             + dist_counts.get(k, 0) + spatial_counts.get(k, 0) for k in counters}
+             + dist_counts.get(k, 0) + spatial_counts.get(k, 0)
+             + family_counts.get(k, 0) for k in counters}
     if min(total.values()) == 0:
         raise AssertionError(f"a kernel never launched on the main paths: {total}")
     src = f"{PORT}/csrc"
@@ -5474,6 +5741,7 @@ def main(argv=None) -> int:
                  else (entry["name"],))
         entry["launches_phase17"] = sum(dist_counts.get(n, 0) for n in names)
         entry["launches_phase18"] = sum(spatial_counts.get(n, 0) for n in names)
+        entry["launches_phase18b"] = sum(family_counts.get(n, 0) for n in names)
     print(f"chip_smoke wall time: {time.perf_counter() - t_script:.1f} s (phase 11 with "
           f"its process: {multiphase_result['process_wall_s']:.1f} s, phase 12: "
           f"{system_result['process_wall_s']:.1f} s, phase 13: "
@@ -5481,7 +5749,8 @@ def main(argv=None) -> int:
           f"{architectures_result['process_wall_s']:.1f} s, phases 15-16: "
           f"{scan_result['process_wall_s']:.1f} s, phase 17: "
           f"{dist_result['process_wall_s']:.1f} s, phase 18: "
-          f"{spatial_result['process_wall_s']:.1f} s)", flush=True)
+          f"{spatial_result['process_wall_s']:.1f} s, phase 18b: "
+          f"{family_result['process_wall_s']:.1f} s)", flush=True)
     print(json.dumps({"kernels": entries}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

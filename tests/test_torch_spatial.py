@@ -31,8 +31,11 @@ Checks, and their tolerances:
   every convolution; the rule of the module docstring);
 - ``fused_eval``: two ``conv_bn_relu`` calls a forward on every rank, each
   on its rows plus one attached row a neighbour (one at the edge ranks);
+- a 3x3 ``Conv2d`` at dilation 2 and 5 on the ranks' rows (16 a rank) put
+  together against the whole conv at 1e-5, and a dilation of 17 raising on
+  every rank (a neighbour holds fewer rows than its halo);
 - in this process, without a group: the errors (a bad mesh, a height the
-  space axis does not divide, ``train=True``, another family), the 1x1
+  space axis does not divide, ``train=True``, a discriminator), the 1x1
   mesh's forward bit for bit the module's, every submodule's train / eval
   mode set back after a forward, the level plan, and
   ``Unet.clone(fused_decoder=False)``.
@@ -57,7 +60,7 @@ from tests.test_torch_models import jax_variables
 from uda_aerial_semantic_segmentation_research_tpu.models.unet import Unet as JaxUnet
 from uda_aerial_semantic_segmentation_research_tpu.parallel import spatial as jax_spatial
 from uda_aerial_semantic_segmentation_research_tpu_torch.models import (
-    create_model,
+    create_discriminator,
     to_jax_state_dict,
 )
 from uda_aerial_semantic_segmentation_research_tpu_torch.models.resnet import Conv2d
@@ -250,6 +253,29 @@ def test_conv_bn_relu_gets_its_rows_and_the_neighbours(runs, name):
         assert r["px128"]["kernel_rows"] == []
 
 
+@pytest.mark.parametrize("dilation", worker.DILATIONS)
+def test_dilated_conv_makes_the_whole_conv(runs, dilation):
+    """Each rank's rows of a dilated conv (``dilation`` rows of halo above and
+    below), put together, are the whole conv's."""
+    b, c, h, w = worker.DILATED_INPUT
+    n_data, n_space = WORLD // 4, 4
+    got = np.zeros((b, c, h, w), np.float32)
+    for r in runs["ranks"]:
+        d, s = r["dilated_convs"]["coords"]
+        rows = (slice(d * b // n_data, (d + 1) * b // n_data),
+                slice(None), slice(s * h // n_space, (s + 1) * h // n_space))
+        got[rows] = r["dilated_convs"][dilation]
+    conv, x = worker.dilated_conv(dilation)
+    with torch.inference_mode():
+        ref = conv(x).numpy()
+    np.testing.assert_allclose(got, ref, rtol=TOL, atol=TOL)
+
+
+def test_dilated_conv_beyond_a_rank_rows_raises(runs):
+    for r in runs["ranks"]:
+        assert "halo rows from neighbours of 16 rows" in r["dilated_convs"][17]
+
+
 # ---------------------------------------------------------------------------
 # one process, no group
 # ---------------------------------------------------------------------------
@@ -285,9 +311,9 @@ def test_spatial_forward_refuses_what_it_cannot_run():
         spatial.spatial_forward(net, None, x, _cpu_mesh(1, 4), train=True)
     with pytest.raises(ValueError, match="height 30 not divisible by the space axis"):
         spatial.spatial_forward(net, None, x, _cpu_mesh(1, 4))
-    fpn = create_model("FPN", "resnet18", None, 3, worker.CLASSES, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.14d"):
-        spatial.spatial_forward(fpn, None, np.zeros((2, 32, 32, 3), np.float32),
+    disc = create_discriminator(worker.CLASSES, dtype=torch.float32, device="cpu")
+    with pytest.raises(NotImplementedError, match="DomainDiscriminator"):
+        spatial.spatial_forward(disc, None, np.zeros((2, 32, 32, 3), np.float32),
                                 _cpu_mesh(1, 2))
 
 

@@ -7,8 +7,10 @@ meet through a ``file://`` store in ``<dir>``, each runs every case of
 :func:`cases` through ``parallel.spatial.spatial_forward`` on the CPU (gloo)
 and writes ``rank<r>.pkl``: per case its block of the logits, its mesh
 coordinates, the collectives it made by kind and the ``conv_bn_relu`` calls
-with the heights they were given.  :func:`model` and :func:`images` are what
-the test builds its references from, in its own process.
+with the heights they were given; and this rank's rows of the dilated
+convs of :func:`run_dilated_convs`.  :func:`model`, :func:`images` and
+:func:`dilated_conv` are what the test builds its references from, in its
+own process.
 """
 
 from __future__ import annotations
@@ -25,12 +27,15 @@ from uda_aerial_semantic_segmentation_research_tpu_torch.models import (
     from_jax_state_dict,
 )
 from uda_aerial_semantic_segmentation_research_tpu_torch.models import unet as unet_module
+from uda_aerial_semantic_segmentation_research_tpu_torch.models.resnet import Conv2d
 from uda_aerial_semantic_segmentation_research_tpu_torch.ops.batch_norm import BatchNorm
 from uda_aerial_semantic_segmentation_research_tpu_torch.parallel import distributed as dist
 from uda_aerial_semantic_segmentation_research_tpu_torch.parallel import spatial
 
 CLASSES = 7
 SEED = 4
+DILATIONS = (2, 5)          # the dilated convs' check; 17 exceeds a rank's 16 rows
+DILATED_INPUT = (2, 8, 64, 32)
 
 
 def cases(world: int) -> dict:
@@ -112,6 +117,36 @@ def run_case(name: str, case: dict, jax_flat) -> dict:
             "gathered": None if gathered is None else gathered.numpy()}
 
 
+def dilated_conv(dilation: int):
+    """A seeded 3x3 ``Conv2d`` at ``dilation`` (SAME padding) and its seeded
+    ``DILATED_INPUT`` (NCHW, channels_last)."""
+    gen = torch.Generator().manual_seed(SEED + dilation)
+    c = DILATED_INPUT[1]
+    conv = Conv2d(c, c, 3, padding=dilation, dilation=dilation, bias=True)
+    with torch.no_grad():
+        conv.weight.copy_(torch.randn(conv.weight.shape, generator=gen) / 8)
+        conv.bias.copy_(0.1 * torch.randn(c, generator=gen))
+    x = torch.randn(DILATED_INPUT, generator=gen)
+    return conv, x.contiguous(memory_format=torch.channels_last)
+
+
+def run_dilated_convs(mesh) -> dict:
+    """This rank's rows of each dilated conv of ``DILATIONS`` under a sharded
+    forward (level 0 of the input split, 16 rows a rank over 4), and the
+    error a dilation wider than a rank's rows raises."""
+    b, _, h, w = DILATED_INPUT
+    rows_b, rows_h = spatial.spatial_image_sharding(mesh).block((b, h, w, 1))
+    out = {"coords": (mesh.data_index, mesh.space_index)}
+    with torch.inference_mode(), spatial._sharded(spatial.Shard(mesh, h, w, 1)):
+        for d in DILATIONS + (17,):
+            conv, x = dilated_conv(d)
+            try:
+                out[d] = conv(x[rows_b, :, rows_h]).numpy()
+            except ValueError as e:
+                out[d] = str(e)
+    return out
+
+
 def main(argv) -> None:
     out_dir, rank, world = argv[0], int(argv[1]), int(argv[2])
     torch.set_num_threads(1)
@@ -122,6 +157,7 @@ def main(argv) -> None:
     try:
         results = {name: run_case(name, case, jax_flat)
                    for name, case in cases(world).items()}
+        results["dilated_convs"] = run_dilated_convs(spatial.spatial_mesh(world // 4, 4))
     finally:
         dist.shutdown()
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:

@@ -26,10 +26,18 @@ resize rounds its weights and each of its two contractions.
 
 Every BatchNorm input stays channels_last: concatenations go along the
 NHWC view's last axis (``_cat``), which is what ``jnp.concatenate`` does.
+
+Under a height-sharded forward (``parallel.spatial``) the families resize
+to a level's global size through ``_resize`` (this rank's rows of it), take
+their means over H and W through ``spatial.pooled`` and run what reads the
+whole level (PSPNet's bins, ``_PAB``, PAN's FPA, an ASPP rate beyond a
+rank's rows) through ``spatial.whole``; a concatenation, sum or product of
+two tensors of other rows or widths raises there.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Sequence
 
@@ -43,6 +51,7 @@ from uda_aerial_semantic_segmentation_research_tpu_torch.models.resnet import (
     encoder_out_channels,
 )
 from uda_aerial_semantic_segmentation_research_tpu_torch.ops.batch_norm import BatchNorm
+from uda_aerial_semantic_segmentation_research_tpu_torch.parallel import spatial
 
 
 def _upsample_to(x, h: int, w: int, method: str = "nearest"):
@@ -60,9 +69,37 @@ def _upsample_to(x, h: int, w: int, method: str = "nearest"):
     return y.to(x.dtype)
 
 
+def _resize(x, h: int, w: int, method: str = "nearest"):
+    """``x`` resized to the global size ``(h, w)``: ``_upsample_to``, or
+    this rank's rows of it under a sharded forward (``Shard.resize``)."""
+    shard = spatial.current_shard()
+    if shard is None:
+        return _upsample_to(x, h, w, method)
+    return shard.resize(x, h, w, method, _upsample_to)
+
+
+def _size(t):
+    """``t``'s (rows, width) in the whole forward."""
+    return spatial.global_rows(t), t.shape[3]
+
+
+def _same_rows(*tensors):
+    """Under a sharded forward, raises unless the tensors have one shape of
+    rows x width: a rank's rows mixed with a whole level would broadcast."""
+    if spatial.current_shard() is not None and len({t.shape[2:] for t in tensors}) > 1:
+        raise ValueError(f"tensors of rows x width {[tuple(t.shape[2:]) for t in tensors]} "
+                         "meet under a sharded forward")
+
+
+def _add(a, b):
+    _same_rows(a, b)
+    return a + b
+
+
 def _cat(tensors):
     """Concatenation along channels of NCHW tensors, made on their NHWC views,
     so that the result is channels_last whatever the inputs' layouts."""
+    _same_rows(*tensors)
     return torch.cat([t.permute(0, 2, 3, 1) for t in tensors], dim=-1).permute(0, 3, 1, 2)
 
 
@@ -84,7 +121,8 @@ def _head(cin: int, classes: int, k: int = 1) -> Conv2d:
 
 def _nearest2x(x):
     """Each pixel repeated 2x2 (the JAX broadcast-and-reshape)."""
-    return F.interpolate(x, scale_factor=2, mode="nearest")
+    rows, w = _size(x)
+    return _resize(x, 2 * rows, 2 * w)
 
 
 class Linear(nn.Linear):
@@ -110,9 +148,10 @@ class _SegBase(nn.Module):
         /32]`` in the internal NCHW form (channels_last memory)."""
         return self.encoder.features(x.permute(0, 3, 1, 2))
 
-    def _logits(self, y, h: int, w: int):
-        """Head output -> (B, h, w, classes) float32, upsampled in ``dtype``."""
-        return _upsample_to(y, h, w, "bilinear").float().permute(0, 2, 3, 1).contiguous()
+    def _logits(self, y, image):
+        """Head output -> (B, H, W, classes) float32 at the size of ``image``
+        (the pyramid's level 0), upsampled in ``dtype``."""
+        return _resize(y, *_size(image), "bilinear").float().permute(0, 2, 3, 1).contiguous()
 
 
 class FPN(_SegBase):
@@ -133,17 +172,17 @@ class FPN(_SegBase):
         self.head = _head(segmentation_channels, classes)
 
     def forward(self, x):
-        h, w = x.shape[1], x.shape[2]
-        c2, c3, c4, c5 = self.encode(x)[2:6]
+        feats = self.encode(x)
+        c2, c3, c4, c5 = feats[2:6]
         p5 = self.lateral5(c5)
-        p4 = self.lateral4(c4) + _upsample_to(p5, *c4.shape[2:])
-        p3 = self.lateral3(c3) + _upsample_to(p4, *c3.shape[2:])
-        p2 = self.lateral2(c2) + _upsample_to(p3, *c2.shape[2:])
+        p4 = _add(self.lateral4(c4), _resize(p5, *_size(c4)))
+        p3 = _add(self.lateral3(c3), _resize(p4, *_size(c3)))
+        p2 = _add(self.lateral2(c2), _resize(p3, *_size(c2)))
         merged = None
         for i, p in enumerate((p5, p4, p3, p2)):
-            s = _upsample_to(_conv_bn_relu(self, f"seg{i}", p), *c2.shape[2:])
-            merged = s if merged is None else merged + s
-        return self._logits(self.head(merged), h, w)
+            s = _resize(_conv_bn_relu(self, f"seg{i}", p), *_size(c2))
+            merged = s if merged is None else _add(merged, s)
+        return self._logits(self.head(merged), feats[0])
 
 
 class PSPNet(_SegBase):
@@ -163,16 +202,20 @@ class PSPNet(_SegBase):
                           dtype)
         self.head = _head(psp_channels, classes)
 
+    def _branch(self, i: int, c5):
+        """Bin ``i``: the bottleneck pooled to ``bins[i]`` squared, a 1x1 conv
+        block, back to the bottleneck's size."""
+        b = self.bins[i]
+        pooled = _conv_bn_relu(self, f"psp{i}", _upsample_to(c5, b, b, "linear"))
+        return _upsample_to(pooled, c5.shape[2], c5.shape[3], "bilinear")
+
     def forward(self, x):
-        h, w = x.shape[1], x.shape[2]
-        c5 = self.encode(x)[-1]
-        fh, fw = c5.shape[2], c5.shape[3]
-        branches = [c5]
-        for i, b in enumerate(self.bins):
-            pooled = _conv_bn_relu(self, f"psp{i}", _upsample_to(c5, b, b, "linear"))
-            branches.append(_upsample_to(pooled, fh, fw, "bilinear"))
+        feats = self.encode(x)
+        c5 = feats[-1]
+        branches = [c5] + [spatial.whole(functools.partial(self._branch, i), c5)
+                           for i in range(len(self.bins))]
         y = _conv_bn_relu(self, "bottleneck", _cat(branches))
-        return self._logits(self.head(y), h, w)
+        return self._logits(self.head(y), feats[0])
 
 
 class LinknetDecoderBlock(nn.Module):
@@ -205,12 +248,11 @@ class Linknet(_SegBase):
         self.head = _head(32, classes, 3)
 
     def forward(self, x):
-        h, w = x.shape[1], x.shape[2]
         feats = self.encode(x)
         y = feats[5]
         for i, skip in enumerate(feats[4:0:-1]):
-            y = getattr(self, f"block{i}")(y) + skip
-        return self._logits(self.head(self.block4(y)), h, w)
+            y = _add(getattr(self, f"block{i}")(y), skip)
+        return self._logits(self.head(self.block4(y)), feats[0])
 
 
 class UnetPlusPlus(_SegBase):
@@ -239,16 +281,15 @@ class UnetPlusPlus(_SegBase):
         return self.row_channels[min(i, len(self.row_channels) - 1)]
 
     def forward(self, x):
-        h, w = x.shape[1], x.shape[2]
         feats = self.encode(x)
         nodes = {(i, 0): feats[i + 1] for i in range(self.ROWS)}
         for j in range(1, self.ROWS):
             for i in range(self.ROWS - j):
-                up = _upsample_to(nodes[(i + 1, j - 1)], *nodes[(i, 0)].shape[2:])
+                up = _resize(nodes[(i + 1, j - 1)], *_size(nodes[(i, 0)]))
                 y = _cat([nodes[(i, k)] for k in range(j)] + [up])
                 y = _conv_bn_relu(self, f"x{i}_{j}a", y)
                 nodes[(i, j)] = _conv_bn_relu(self, f"x{i}_{j}b", y)
-        return self._logits(self.head(nodes[(0, self.ROWS - 1)]), h, w)
+        return self._logits(self.head(nodes[(0, self.ROWS - 1)]), feats[0])
 
 
 class DeepLabV3Plus(_SegBase):
@@ -273,18 +314,20 @@ class DeepLabV3Plus(_SegBase):
         self.head = _head(a, classes)
 
     def forward(self, x):
-        h, w = x.shape[1], x.shape[2]
         feats = self.encode(x)
         low, c5 = feats[2], feats[5]
         branches = [_conv_bn_relu(self, "aspp_1x1", c5)]
-        branches += [_conv_bn_relu(self, f"aspp_r{r}", c5) for r in self.atrous_rates]
-        pooled = _conv_bn_relu(self, "aspp_pool", c5.mean((2, 3), keepdim=True))
+        for r in self.atrous_rates:
+            # a rate beyond the rows a rank holds reads past its neighbour: whole
+            atrous = functools.partial(_conv_bn_relu, self, f"aspp_r{r}")
+            branches.append(atrous(c5) if r <= c5.shape[2] else spatial.whole(atrous, c5))
+        pooled = spatial.pooled(functools.partial(_conv_bn_relu, self, "aspp_pool"), c5)
         branches.append(pooled.expand(-1, -1, c5.shape[2], c5.shape[3]))
         y = _conv_bn_relu(self, "aspp_project", _cat(branches))
-        y = _upsample_to(y, low.shape[2], low.shape[3], "bilinear")
+        y = _resize(y, *_size(low), "bilinear")
         y = _cat([y, _conv_bn_relu(self, "low_project", low)])
         y = _conv_bn_relu(self, "refine2", _conv_bn_relu(self, "refine1", y))
-        return self._logits(self.head(y), h, w)
+        return self._logits(self.head(y), feats[0])
 
 
 class PAN(_SegBase):
@@ -313,12 +356,9 @@ class PAN(_SegBase):
             self.add_module(f"gau{i}_att_norm", BatchNorm(ch, dtype=dtype))
         self.head = _head(ch, classes)
 
-    def forward(self, x):
-        h, w = x.shape[1], x.shape[2]
-        feats = self.encode(x)
-        c2, c3, c4, c5 = feats[2:6]
-        glob = self.fpa_pool(c5.mean((2, 3), keepdim=True))
-        mid = _conv_bn_relu(self, "fpa_mid", c5)
+    def _fpa_pyramid(self, c5):
+        """The FPA's downsampling pyramid over the whole bottleneck, summed
+        back up to its size; None where the grid is too small to halve."""
         downs, cur = [], c5
         for _, lname in self.FPA:
             if min(cur.shape[2], cur.shape[3]) < 2:
@@ -331,13 +371,27 @@ class PAN(_SegBase):
             u = s if u is None else s + u
             target = downs[n - 2] if n >= 2 else c5
             u = _upsample_to(u, target.shape[2], target.shape[3], "bilinear")
-        y = mid * u + glob if downs else mid + glob
+        return u
+
+    def _attention(self, i: int, pooled):
+        att = getattr(self, f"gau{i}_att")(pooled)
+        return torch.sigmoid(getattr(self, f"gau{i}_att_norm")(att))
+
+    def forward(self, x):
+        feats = self.encode(x)
+        c2, c3, c4, c5 = feats[2:6]
+        glob = spatial.pooled(self.fpa_pool, c5)
+        mid = _conv_bn_relu(self, "fpa_mid", c5)
+        u = spatial.whole(self._fpa_pyramid, c5)
+        if u is not None:
+            _same_rows(mid, u)
+            mid = mid * u
+        y = mid + glob
         for i, skip in enumerate((c4, c3, c2)):
             low = _conv_bn_relu(self, f"gau{i}_low", skip)
-            att = getattr(self, f"gau{i}_att")(y.mean((2, 3), keepdim=True))
-            att = torch.sigmoid(getattr(self, f"gau{i}_att_norm")(att))
-            y = _upsample_to(y, skip.shape[2], skip.shape[3], "bilinear") + low * att
-        return self._logits(self.head(y), h, w)
+            att = spatial.pooled(functools.partial(self._attention, i), y)
+            y = _add(_resize(y, *_size(skip), "bilinear"), low * att)
+        return self._logits(self.head(y), feats[0])
 
 
 class _PAB(nn.Module):
@@ -379,11 +433,13 @@ class _MFAB(nn.Module):
         self.se_reduce = Linear(out_channels, squeeze)
         self.se_expand = Linear(squeeze, out_channels)
 
+    def _excite(self, pooled):
+        return torch.sigmoid(self.se_expand(torch.relu(self.se_reduce(pooled[:, :, 0, 0]))))
+
     def forward(self, deep, skip):
-        y = _cat([_upsample_to(deep, skip.shape[2], skip.shape[3]), skip])
+        y = _cat([_resize(deep, *_size(skip)), skip])
         y = _conv_bn_relu(self, "fuse2", _conv_bn_relu(self, "fuse1", y))
-        s = self.se_expand(torch.relu(self.se_reduce(y.mean((2, 3)))))
-        return y * torch.sigmoid(s)[:, :, None, None]
+        return y * spatial.pooled(self._excite, y)[:, :, None, None]
 
 
 class MAnet(_SegBase):
@@ -405,10 +461,9 @@ class MAnet(_SegBase):
         self.head = _head(16, classes)
 
     def forward(self, x):
-        h, w = x.shape[1], x.shape[2]
         feats = self.encode(x)
-        y = self.pab(feats[5])
+        y = spatial.whole(self.pab, feats[5])
         for i, skip in zip(range(self.n_stages), feats[4:0:-1]):
             y = getattr(self, f"mfab{i}")(y, skip)
         y = _conv_bn_relu(self, "final", _nearest2x(y))
-        return self._logits(self.head(y), h, w)
+        return self._logits(self.head(y), feats[0])

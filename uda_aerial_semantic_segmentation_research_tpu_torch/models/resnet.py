@@ -73,7 +73,7 @@ class Conv2d(nn.Conv2d):
         shard = current_shard()
         if shard is not None:
             return shard.conv2d(x, self.weight.to(x.dtype), bias, self.stride, self.padding,
-                                self.groups)
+                                self.dilation, self.groups)
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 

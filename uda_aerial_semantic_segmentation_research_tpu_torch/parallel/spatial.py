@@ -3,21 +3,25 @@
 Counterpart of the JAX package's ``parallel/spatial.py``: a 2-D
 ``("data", "space")`` mesh, images sharded batch x height, parameters
 replicated, for a raster tile too large for one card's memory.  There XLA's
-partitioner inserts the halo exchanges.  Here one process drives one device
-(``parallel.distributed``), so the layers on the U-Net's path fetch their
-neighbours' boundary rows themselves while a sharded forward runs:
+partitioner inserts the halo exchanges and the cross-shard reductions.
+Here one process drives one device (``parallel.distributed``), so the
+layers of the segmentation models (the U-Net, the other ``create_model``
+families on every encoder, ``UDASegmentationModel``) exchange rows
+themselves while a sharded forward runs:
 
-- every convolution (``models.resnet.Conv2d``: both encoders, the decoder,
-  the head), the stem's max-pool and the ``conv_bn_relu`` kernel of
+- every convolution (``models.resnet.Conv2d``: the encoders, the decoders,
+  the heads), the stem's max-pool and the ``conv_bn_relu`` kernel of
   ``fused_eval`` ask :func:`current_shard` for this thread's sharded forward;
   without one they compute as before;
 - a layer fetches exactly the rows its receptive field reads from the rows
   this process holds, ``[a, a + h)`` of its level with ``a`` even: a 3x3/1
-  conv 1 row above and 1 below, the 7x7/2 stem 3 above and 2 below, a 3x3/2
-  conv and the 3x3/2 max-pool 1 above, a 1x1 conv none.  It pads only at
-  the global top and bottom (zeros for a conv, ``-inf`` for the max-pool)
-  and keeps its own padding along W.  So its output rows are exactly rows
-  ``[s * h_out, (s + 1) * h_out)`` of the whole forward's at that layer;
+  conv 1 row above and 1 below (``d`` each at dilation ``d``), the 7x7/2
+  stem 3 above and 2 below, a 3x3/2 conv and the 3x3/2 max-pool 1 above, a
+  1x1 conv none.  It pads only at the global top and bottom (zeros for a
+  conv, ``-inf`` for the max-pool) and keeps its own padding along W.  So
+  its output rows are exactly rows ``[s * h_out, (s + 1) * h_out)`` of the
+  whole forward's at that layer.  A neighbour that holds fewer rows than the
+  halo needs raises: such a layer runs whole through :func:`whole`;
 - the rows travel as one all-reduce over the space group of a zeroed buffer
   that holds each rank's bottom and top rows at its slot (the idea of
   ``distributed.gather_rows``).  It runs under NCCL and under gloo, on CPU
@@ -31,6 +35,29 @@ neighbours' boundary rows themselves while a sharded forward runs:
   attached rows are dropped.  Its gate reads the level's global height, so
   every rank takes the path the whole forward takes.
 
+The families add three primitives (:meth:`Shard.resize`, :func:`pooled`,
+:func:`whole`), each with one rule:
+
+- a resize to a level's global size by a power-of-two factor ``f``
+  (nearest, or the half-pixel bilinear) computes this rank's output rows
+  ``[a, a + r)`` from the source rows they read, ``[a // f, ceil((a + r) /
+  f))``, one more on each side for the bilinear (a ``"halo"`` exchange from
+  split rows; a slice of a whole level).  At the global edges the window
+  stops, so the resize's own clamp reads what it reads in the whole resize
+  (a replicate edge, without its rounding);
+- a mean over H and W (the ASPP's and PAN's pooling, the GAU attention,
+  ``_MFAB``'s squeeze-excite) is one all-reduce of the local float32 sums
+  over the space group (``"mean"``) divided by the level's global count; the
+  ``(B, C, 1, 1)`` result has no rows, and the function of it runs with the
+  shard suspended;
+- ``whole(fn, x)`` gathers ``x``'s level once (``"level"``), runs ``fn``
+  with the shard suspended and keeps this rank's rows of the result: for
+  what reads across the whole level (PSPNet's bins, ``_PAB``'s attention,
+  PAN's FPA, whose pooled levels go below the pyramid, and the ASPP's
+  dilated convs where their rate exceeds a rank's rows).  A tensor whose
+  width is on no level raises; nothing runs whole but through this call
+  and the level plan.
+
 **Whole levels.**  Level ``k`` of the pyramid (``H / 2**k`` rows) is split
 when ``n_space`` divides its rows, each rank holds at least the rows its
 readers fetch (3 at the input below a 7x7 stem, else 1), its rows are
@@ -38,21 +65,22 @@ exactly half the rows of level ``k - 1`` and level ``k - 1`` is split.
 Otherwise (small tiles: the ``/16`` and ``/32`` levels of 32 px over 4
 ranks) the level is computed whole on every rank: the stride-2 layer that
 enters it gathers its input over the space group (one all-reduce, counted
-as ``"level"``, shared by the block's conv and downsample), and the decoder
-takes back this rank's rows after the upsample at the first level that is
-split again.  A level is recognised by its width, which no layer shards.
+as ``"level"``, shared by the block's conv and downsample), and the
+upsample to the first level that is split again keeps this rank's rows.  A
+level is recognised by its width, which no layer shards.
 
-Eval-mode BatchNorm, the ReLUs, the nearest upsample, the activation and
-the ``logits_dtype`` cast are per pixel and need no rows.  Every rank runs
-the same collectives in the same order: the plan is the same everywhere and
-the edge ranks take part in every exchange.
+Eval-mode BatchNorm, the ReLUs, the activation and the ``logits_dtype``
+cast are per pixel and need no rows.  Every rank runs the same collectives
+in the same order: the plan is the same everywhere and the edge ranks take
+part in every exchange.
 
 Differences from the JAX function: ``images`` is the full host value on
 every process (as JAX ``_global_put`` takes it) and the result is this
 process's block, not a global array (:func:`gather_blocks` assembles the
-whole); the eval forward only; the U-Net only (the other ``create_model``
-families need cross-shard means, attention over every position or
-half-pixel halos: ``ROADMAP.md`` A.14d).
+whole); the eval forward only; segmentation models only (a discriminator's
+``(B, 1)`` output has no rows, and ``spatial_forward`` refuses it by name);
+the means are explicit all-reduces, and the layers that read a whole level
+run it whole on every rank.
 """
 
 from __future__ import annotations
@@ -70,10 +98,11 @@ import torch.nn.functional as F
 from uda_aerial_semantic_segmentation_research_tpu_torch.config import Config
 from uda_aerial_semantic_segmentation_research_tpu_torch.parallel import distributed as dist
 
-__all__ = ["spatial_mesh", "spatial_image_sharding", "spatial_forward"]
+__all__ = ["spatial_mesh", "spatial_image_sharding", "spatial_forward", "pooled",
+           "whole"]
 
 AXIS_NAMES = ("data", "space")
-PYRAMID_LEVELS = 6            # the U-Net's levels: identity, /2, /4, /8, /16, /32
+PYRAMID_LEVELS = 6            # the encoders' levels: identity, /2, /4, /8, /16, /32
 
 _STATE = threading.local()
 
@@ -185,11 +214,13 @@ def _sharded(shard: Optional["Shard"]):
         _STATE.shard = before
 
 
-def _rows_read(kernel: int, stride: int, pad: int):
+def _rows_read(kernel: int, stride: int, pad: int, dilation: int = 1):
     """Rows above and below its own that a window layer reads for its
     output rows (local rows ``[a, a + h)``, ``a`` and ``h`` even at stride 2)."""
     if stride == 1:
-        return pad, kernel - 1 - pad
+        return pad, dilation * (kernel - 1) - pad
+    if dilation != 1:
+        raise NotImplementedError(f"a sharded dilated conv takes stride 1, not {stride}")
     if stride == 2:
         return pad, max(0, kernel - pad - 2)
     raise NotImplementedError(f"a sharded layer takes stride 1 or 2, not {stride}")
@@ -219,10 +250,13 @@ class Shard:
         self._gathered = None
 
     def level(self, x) -> int:
+        return self._level_of(x.shape[3])
+
+    def _level_of(self, width: int) -> int:
         try:
-            return self._level[x.shape[3]]
+            return self._level[width]
         except KeyError:
-            raise ValueError(f"a tensor of width {x.shape[3]} is on no level of this "
+            raise ValueError(f"a tensor of width {width} is on no level of this "
                              f"sharded forward ({sorted(self._level)})") from None
 
     def global_rows(self, x) -> int:
@@ -278,18 +312,18 @@ class Shard:
         return y[:, :, self.s * h:(self.s + 1) * h].contiguous(
             memory_format=torch.channels_last)
 
-    def _window(self, x, kernel: int, stride: int, pad: int, edge: float):
+    def _window(self, x, kernel: int, stride: int, pad: int, edge: float, dilation: int = 1):
         """The input of a window layer on ``x``: ``(input, H padding)``."""
         if not self.is_local(x):
             return x, pad
         if stride == 2 and not self.split[self.level(x) + 1]:
             return self.gather(x), pad
-        return self.halo(x, *_rows_read(kernel, stride, pad), edge), 0
+        return self.halo(x, *_rows_read(kernel, stride, pad, dilation), edge), 0
 
-    def conv2d(self, x, weight, bias, stride, padding, groups):
+    def conv2d(self, x, weight, bias, stride, padding, dilation, groups):
         """``F.conv2d`` (zero padding ``padding``) on this rank's rows."""
-        x, pad_h = self._window(x, weight.shape[2], stride[0], padding[0], 0.0)
-        return F.conv2d(x, weight, bias, stride, (pad_h, padding[1]), 1, groups)
+        x, pad_h = self._window(x, weight.shape[2], stride[0], padding[0], 0.0, dilation[0])
+        return F.conv2d(x, weight, bias, stride, (pad_h, padding[1]), dilation, groups)
 
     def max_pool2d(self, x, kernel: int, stride: int, padding: int):
         """``F.max_pool2d`` (``-inf`` padding) on this rank's rows."""
@@ -305,6 +339,86 @@ class Shard:
         h = y.shape[2]
         lo, hi = (0 if self.s > 0 else 1), (h + 2 if self.s < self.n - 1 else h + 1)
         return self.halo(y, 1, 1)[:, :, lo:hi], slice(1 - lo, 1 - lo + h)
+
+    def resize(self, x, h: int, w: int, method: str, plain):
+        """``x`` (this rank's rows of a split level, or a whole level) resized
+        to the global ``(h, w)`` by ``plain(t, h, w, method)``, the whole
+        forward's resize: this rank's rows where the target level is split,
+        else the whole (module docstring).  An upsampling by a power of two
+        reads the source rows of this rank's output rows only; any other
+        ratio runs whole and keeps this rank's rows, from a whole level
+        only."""
+        src = self.global_rows(x)
+        if src == h and x.shape[3] == w:
+            return x
+        k = self._level_of(w)
+        if not self.split[k]:
+            if self.is_local(x):
+                raise ValueError(f"a resize from split rows to the whole level {k}")
+            return plain(x, h, w, method)
+        f, rem = divmod(h, src)
+        if rem or f & (f - 1):
+            if self.is_local(x):
+                raise ValueError(f"a sharded resize of split rows upsamples by a power of "
+                                 f"two, not {src} -> {h} rows")
+            return self.own_rows(plain(x, h, w, method))
+        reach = 0 if method == "nearest" else 1        # the half-pixel bilinear's neighbours
+        r = h // self.n
+        a = self.s * r
+        lo, hi = max(a // f - reach, 0), min(-(-(a + r) // f) + reach, src)
+        if self.is_local(x):
+            start = self.s * x.shape[2] - reach
+            t = (self.halo(x, reach, reach) if reach else x)[:, :, lo - start:hi - start]
+        else:
+            t = x[:, :, lo:hi]
+        y = plain(t.contiguous(memory_format=torch.channels_last), (hi - lo) * f, w, method)
+        return y[:, :, a - lo * f:a - lo * f + r].contiguous(memory_format=torch.channels_last)
+
+    def mean(self, x):
+        """The mean of ``x`` over H and W, ``(B, C, 1, 1)``: from this rank's
+        rows, one all-reduce of the float32 sums over the space group."""
+        if not self.is_local(x):
+            return x.mean((2, 3), keepdim=True)
+        sums = x.float().sum((2, 3))
+        dist.all_reduce_(sums, "mean", self.group)
+        count = self.global_rows(x) * x.shape[3]
+        return (sums / count).to(x.dtype)[:, :, None, None]
+
+    def whole(self, fn, x):
+        """``fn`` of ``x``'s whole level, run with this shard suspended (one
+        gather where ``x`` holds this rank's rows); this rank's rows of the
+        result where its level is split (None passes)."""
+        t = self.gather(x) if self.is_local(x) else x
+        with _sharded(None):
+            y = fn(t)
+        return None if y is None else self.own_rows(y)
+
+
+def whole(fn, x):
+    """``fn(x)``; under a sharded forward, ``fn`` of ``x``'s whole level and
+    this rank's rows of the result (:meth:`Shard.whole`): for a layer that
+    reads across the whole level."""
+    shard = current_shard()
+    return fn(x) if shard is None else shard.whole(fn, x)
+
+
+def pooled(fn, x):
+    """``fn`` of the mean of ``x`` over H and W, ``(B, C, 1, 1)``; under a
+    sharded forward the mean over the whole level (:meth:`Shard.mean`), and
+    ``fn`` runs with the shard suspended: its input has no rows."""
+    shard = current_shard()
+    if shard is None:
+        return fn(x.mean((2, 3), keepdim=True))
+    m = shard.mean(x)
+    with _sharded(None):
+        return fn(m)
+
+
+def global_rows(x) -> int:
+    """The rows of ``x``'s level in the whole forward (``x``'s own rows
+    without a sharded forward)."""
+    shard = current_shard()
+    return x.shape[2] if shard is None else shard.global_rows(x)
 
 
 # ---------------------------------------------------------------------------
@@ -329,12 +443,47 @@ def _state(module, variables, device) -> dict:
             for k, v in from_jax_state_dict(variables).items()}
 
 
-def spatial_forward(module, variables, images, mesh: SpatialMesh, train: bool = False):
-    """The U-Net's eval forward with ``images`` sharded batch x height over
-    ``mesh`` and the parameters replicated; returns this process's block of
-    the logits, ``(B / n_data, H / n_space, W, classes)`` in the module's
-    ``logits_dtype`` on ``mesh.device``.
+def _naive_decoder(module):
+    """A U-Net with its fused decoder schedule run as the naive one, the same
+    parameters (the sharded layers cover the naive upsample + conv); any
+    other module as it is (``UDASegmentationModel`` builds its U-Net with
+    the default, naive, schedule)."""
+    from uda_aerial_semantic_segmentation_research_tpu_torch.models.unet import Unet
 
+    if isinstance(module, Unet) and module.decoder.fused is not False:
+        return module.clone(fused_decoder=False)
+    return module
+
+
+def _encoder(module):
+    """The encoder of a segmentation model; raises, naming it, for any
+    other module."""
+    from uda_aerial_semantic_segmentation_research_tpu_torch.models.architectures import (
+        _SegBase,
+    )
+    from uda_aerial_semantic_segmentation_research_tpu_torch.models.uda import (
+        UDASegmentationModel,
+    )
+    from uda_aerial_semantic_segmentation_research_tpu_torch.models.unet import Unet
+
+    if isinstance(module, UDASegmentationModel):
+        return module.net.encoder
+    if isinstance(module, (Unet, _SegBase)):
+        return module.encoder
+    raise NotImplementedError(f"spatial_forward shards the (B, H, W, classes) logits of a "
+                              f"segmentation model by rows; {type(module).__name__} is not one "
+                              "(a discriminator's (B, 1) output has no rows)")
+
+
+def spatial_forward(module, variables, images, mesh: SpatialMesh, train: bool = False):
+    """A segmentation model's eval forward with ``images`` sharded batch x
+    height over ``mesh`` and the parameters replicated; returns this
+    process's block of the logits, ``(B / n_data, H / n_space, W, classes)``
+    in the module's logits dtype on ``mesh.device``.
+
+    ``module``: a ``Unet``, any other ``create_model`` family on any encoder,
+    or a ``UDASegmentationModel`` (its default forward, the segmentation
+    logits); anything else raises ``NotImplementedError``, naming it.
     ``images``: the full ``(B, H, W, C)`` host value (numpy or tensor), the
     same on every process.  ``variables``: None (the module's own parameters
     and buffers, which must be on ``mesh.device``) or a flat JAX-layout
@@ -346,23 +495,19 @@ def spatial_forward(module, variables, images, mesh: SpatialMesh, train: bool = 
     writes running statistics that ``module.apply`` was given no mutable
     collection for).
 
-    A fused decoder schedule (``fused_decoder`` ``True``, a tuple or
-    ``"dilated"``) runs as the naive one, ``module.clone(fused_decoder=False)``
-    with the same parameters, as the JAX function does: the sharded layers
-    cover the naive upsample + conv.  Every process of the group must call it
-    with the same arguments."""
+    A U-Net's fused decoder schedule (``fused_decoder`` ``True``, a tuple or
+    ``"dilated"``) runs as the naive one, ``clone(fused_decoder=False)`` with
+    the same parameters, as the JAX function does: the sharded layers cover
+    the naive upsample + conv.  Every process of the group must call it with
+    the same arguments."""
     if train:
         raise ValueError("spatial_forward runs the eval forward only (train=True fails "
                          "in the JAX package too: its BatchNorm would write running "
                          "statistics)")
-    from uda_aerial_semantic_segmentation_research_tpu_torch.models.unet import Unet
-
-    if not isinstance(module, Unet):
-        raise NotImplementedError(f"spatial_forward shards the U-Net only; "
-                                  f"{type(module).__name__} waits for ROADMAP.md A.14d")
+    encoder = _encoder(module)
     rows_b, rows_h = spatial_image_sharding(mesh).block(images.shape)
     shard = (Shard(mesh, int(images.shape[1]), int(images.shape[2]),
-                   module.encoder.stem_conv.padding[0]) if mesh.n_space > 1 else None)
+                   encoder.stem_conv.padding[0]) if mesh.n_space > 1 else None)
     if shard is not None and not shard.split[0]:
         shard = None            # too few rows a rank: every rank runs the whole tile
     x = images[rows_b, rows_h] if shard is not None else images[rows_b]
@@ -371,7 +516,7 @@ def spatial_forward(module, variables, images, mesh: SpatialMesh, train: bool = 
     modes = [(m, m.training) for m in module.modules()]
     module.eval()
     try:
-        net = module if module.decoder.fused is False else module.clone(fused_decoder=False)
+        net = _naive_decoder(module)
         with torch.inference_mode(), _sharded(shard):
             if variables is None:
                 out = net(x)
