@@ -2,9 +2,12 @@
 
     python3 chip_smoke.py                  # everything below, on one card
     python3 chip_smoke.py --probe-batch N  # only: does a train step fit at batch N?
-    python3 chip_smoke.py --compare-sums-source OLD.cu
+    python3 chip_smoke.py --compare-sums-source OLD/channel_sums.cu
         # only: the sums kernels against those built from an older
-        # channel_sums.cu, at the train step's 7 BatchNorm shapes, in turns
+        # channel_sums.cu, on the grid of that commit's ops/channel_sums.py
+        # (copied to OLD/channel_sums.py), in turns, at the BatchNorm shapes of
+        # the resnet34 step, the mobilenet_v2 U-Net, DeepLabV3Plus, resnet50
+        # and the discriminators
     python3 chip_smoke.py --compare-dihedral-source OLD.cu
         # only: dihedral_normalize against the one built from an older
         # dihedral_normalize.cu, at the train step's shape, in turns
@@ -31,7 +34,9 @@
      three of them in f32, timed as 20 launches per event pair over rotating
      input copies larger than twice the L2 and as the profiler's kernel
      duration; untimed at the edges (C=3, 16, 24, 512, M=1, ragged rows,
-     mixed bf16/f32 duals, an unaligned view); one device kernel per call,
+     rows of 3, 120 and 160 vectors, bf16 C=20 and f32 C=1280 on the
+     generic path, mixed bf16/f32 duals, an unaligned view); one device
+     kernel per call (at rows of 3 and 120 vectors too),
      1,000 calls in a row and two streams at once give the same bits; the
      wrapper's host time per call;
    - ``dihedral_normalize`` at (32, 512, 512, 3) uint8 with uint8 masks, for
@@ -231,9 +236,12 @@
    in-memory tiles, its launches, and its ``final_model.pth`` reloaded
    through ``from_jax_state_dict`` to bit-identical logits.  Last the sums
    kernels against their plain versions at every BatchNorm input shape no
-   earlier phase has (bulk and generic path, timed as in 3 with
-   ``torch.var_mean`` as the library call).  Prints an ``architectures``
-   line.
+   earlier phase has (each with its path and its vectors a row, timed as in
+   3 with ``torch.var_mean`` as the library call), the mobilenet U-Net's
+   and DeepLabV3Plus's census of rows that hold no power of two of vectors
+   checked against ``MOBILENET_UNET_WIDENED`` / ``DEEPLAB_WIDENED``, every
+   one on the bulk path, and the mobilenet U-Net's 42 such inputs a step
+   (kernel ms, bound, library).  Prints an ``architectures`` line.
 15. (after 14, in a spawned process of its own, with 16) ``make_scan_driver``:
    the train steps as CUDA graphs at full width (512 px, bf16, B=32, WEAK /
    STRONG, capturable states): the resnet34 U-Net's phase-1 step with
@@ -267,7 +275,8 @@
    relative L2 and the head's 1e-4, the CPU test's tolerances).
 3c (in the main process, after 3b) each kernel alone in a CUDA graph at
    its main-path shapes (``conv_bn_relu`` at the two serving shapes, the
-   sums and dual at the step's seven BatchNorm inputs, ``dihedral_normalize``
+   sums and dual at the step's seven BatchNorm inputs and at (32·16², 960),
+   120 vectors a row, ``dihedral_normalize``
    with and without masks, ``fused_cross_entropy`` forward and backward in
    bf16), captured on a side stream after one launch there, replayed three
    times, bit for bit against the eager launch: a ``capture_check`` line
@@ -366,6 +375,7 @@ nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import ast
 import collections
 import copy
 import dataclasses
@@ -405,10 +415,23 @@ L2_BYTES = 50 * 2 ** 20                         # H100 L2
 BN_SHAPES = {(32, 16, 16, 512): 7, (32, 32, 32, 256): 15, (32, 64, 64, 128): 11,
              (32, 128, 128, 64): 8, (32, 256, 256, 32): 2, (32, 256, 256, 64): 1,
              (32, 512, 512, 16): 2}
-# untimed sums checks: the generic path (C=24, C=3, ragged, odd row counts),
-# M=1 on both paths, C=16 / 512 off the step's shapes, many rows
+# BatchNorm inputs of the B=32 mobilenet_v2 U-Net step whose rows hold no
+# power of two of 16-byte vectors in bf16 (42 of its 62; the bulk path takes
+# them, as it takes every power of two), and DeepLabV3Plus's
+# low_project at resnet34 (NHWC shape: BatchNorms; phase 14 checks them
+# against its census)
+MOBILENET_UNET_WIDENED = {(32, 128, 128, 24): 2, (32, 256, 256, 96): 1, (32, 128, 128, 96): 1,
+                          (32, 32, 32, 96): 3, (32, 128, 128, 144): 3, (32, 64, 64, 144): 1,
+                          (32, 16, 16, 160): 3, (32, 64, 64, 192): 5, (32, 32, 32, 192): 1,
+                          (32, 16, 16, 320): 1, (32, 32, 32, 384): 8, (32, 32, 32, 576): 5,
+                          (32, 16, 16, 576): 1, (32, 16, 16, 960): 6, (32, 16, 16, 1280): 1}
+DEEPLAB_WIDENED = {(32, 128, 128, 48): 1}
+# untimed sums checks: the generic path (bf16 C=20: 40-byte rows; C=3;
+# f32 C=1280: 320 vectors a row), rows of 3 to 160 vectors (C=24 .. 1280;
+# several stages at 3 and 160), ragged, odd row counts, M=1 on both paths,
+# C=16 / 512 off the step's shapes, many rows
 SUMS_EDGE_SHAPES = [(3, 7, 5, 24), (1, 16), (1, 512), (1, 24), (2, 1000, 24), (4, 9, 3),
-                    (5, 3, 16), (70000, 32)]
+                    (5, 3, 16), (70000, 32), (3, 7, 5, 20), (7, 960), (2, 700, 1280)]
 # what the kernels line gives for each extra sums shape
 PER_SHAPE_KEYS = ("shape", "sums_ms", "dual_ms", "sums_bound_ms", "dual_bound_ms",
                   "sums_kernel_ms", "dual_kernel_ms", "sums_plain_ms", "dual_plain_ms",
@@ -650,8 +673,9 @@ def check_sums(ops, gen, shape, dtype, timed, dy_dtype=None, parent=None):
     form.  Tolerance: 1e-5 of sum|terms| per channel (float32 sums taken in
     another order); two launches bit-identical.  Timed: 20 launches per event
     pair over rotating copies of the inputs (> 2x the L2: cold, as in the
-    step), the single-launch time beside; ``parent`` (the parent commit's
-    kernels) timed the same way, in turns with the new ones."""
+    step), the single-launch time beside; ``parent`` (an older commit's
+    kernels, ``parent_sums``) timed the same way and by the profiler, in
+    turns with the new ones, the library's kernel time beside."""
     dy, x = sums_inputs(gen, shape, dtype, dy_dtype)
     dims = tuple(range(len(shape) - 1))
     got, dual = ops.channel_sums(x), ops.channel_dual_sums(dy, x)
@@ -681,31 +705,35 @@ def check_sums(ops, gen, shape, dtype, timed, dy_dtype=None, parent=None):
         sums_in = [(x,)] + rotation(lambda: (x.clone(),), n * x.element_size())[1:]
         dual_in = [(dy, x)] + rotation(lambda: (dy.clone(), x.clone()),
                                        n * (x.element_size() + dy.element_size()))[1:]
-        if parent is not None:       # parent, new, new, parent
+        if parent is not None:       # parent, new, new, parent; event pairs and profiler
             for key, new_fn, inputs in (("sums", ops.channel_sums, sums_in),
                                         ("dual", ops.channel_dual_sums, dual_in)):
-                t = [device_ms(cycling(f, inputs))
-                     for f in (parent, new_fn, new_fn, parent)]
-                res[f"{key}_parent_ms"] = (t[0] + t[3]) / 2
-                res[f"{key}_ms"] = (t[1] + t[2]) / 2
-                res[f"{key}_turns_ms"] = t
+                for time_fn, name in ((device_ms, ""), (kernel_ms, "kernel_")):
+                    t = [time_fn(cycling(f, inputs)) for f in (parent, new_fn, new_fn, parent)]
+                    res[f"{key}_parent_{name}ms"] = (t[0] + t[3]) / 2
+                    res[f"{key}_{name}ms"] = (t[1] + t[2]) / 2
+                    res[f"{key}_{name}turns_ms"] = t
         else:
             res["sums_ms"] = device_ms(cycling(ops.channel_sums, sums_in))
             res["dual_ms"] = device_ms(cycling(ops.channel_dual_sums, dual_in))
             res["sums_plain_ms"] = device_ms(cycling(ops.channel_sums_reference, sums_in))
             res["dual_plain_ms"] = device_ms(cycling(ops.channel_dual_sums_reference, dual_in))
-            res["sums_library_ms"] = device_ms(
-                cycling(lambda t: torch.var_mean(t, dim=dims), sums_in))
-            res["dual_library_ms"] = device_ms(cycling(
-                lambda d, t: (d.sum(dims, dtype=torch.float32),
-                              (d * t).sum(dims, dtype=torch.float32)), dual_in))
+        res["sums_library_ms"] = device_ms(
+            cycling(lambda t: torch.var_mean(t, dim=dims), sums_in))
+        res["dual_library_ms"] = device_ms(cycling(
+            lambda d, t: (d.sum(dims, dtype=torch.float32),
+                          (d * t).sum(dims, dtype=torch.float32)), dual_in))
+        if parent is None:
             res["sums_single_launch_ms"] = time_ms(lambda: ops.channel_sums(x))
             res["dual_single_launch_ms"] = time_ms(lambda: ops.channel_dual_sums(dy, x))
-        res["sums_kernel_ms"] = kernel_ms(cycling(ops.channel_sums, sums_in))
-        res["dual_kernel_ms"] = kernel_ms(cycling(ops.channel_dual_sums, dual_in))
-        if parent is not None:
-            res["sums_parent_kernel_ms"] = kernel_ms(cycling(parent, sums_in))
-            res["dual_parent_kernel_ms"] = kernel_ms(cycling(parent, dual_in))
+            res["sums_kernel_ms"] = kernel_ms(cycling(ops.channel_sums, sums_in))
+            res["dual_kernel_ms"] = kernel_ms(cycling(ops.channel_dual_sums, dual_in))
+        else:
+            res["sums_library_kernel_ms"] = kernel_ms(
+                cycling(lambda t: torch.var_mean(t, dim=dims), sums_in))
+            res["dual_library_kernel_ms"] = kernel_ms(cycling(
+                lambda d, t: (d.sum(dims, dtype=torch.float32),
+                              (d * t).sum(dims, dtype=torch.float32)), dual_in))
         del sums_in, dual_in
         res["sums_bound_ms"], res["bound_by"] = roofline(n * x.element_size() + 8 * c, 4 * n)
         res["dual_bound_ms"], _ = roofline(n * (x.element_size() + dy.element_size()) + 8 * c,
@@ -729,15 +757,16 @@ def device_events(fn, calls: int = 20, windows: int = 12):
     """(name, µs) of every device event (kernels, copies, fills) of ``calls``
     calls of ``fn`` under torch.profiler, after one call outside the window.
     A spin kernel on each side of the calls is left out.  The profiler can
-    drop events (a whole window's, at times; one of 20 in each of four
-    windows in a row, once) but never adds any: a window is taken again, up
-    to ``windows`` times, until its count is a whole number of events per
-    call, and the fullest window is returned."""
+    drop events (a whole window's, at times; in some processes one of every
+    window) but never adds any: a window is taken again, up to ``windows``
+    times, until its count is a whole number of events per call or two
+    windows in a row came out equally short (a loss the profiler repeats,
+    which more windows do not undo), and the fullest window is returned."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    best = []
+    best, last = [], None
     for _ in range(windows):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             torch.cuda._sleep(20000)
@@ -749,8 +778,9 @@ def device_events(fn, calls: int = 20, windows: int = 12):
                   if on_device(e) and "spin_kernel" not in e.name]
         if len(events) > len(best):
             best = events
-        if best and len(best) % calls == 0:
+        if (best and len(best) % calls == 0) or (events and len(events) == last):
             break
+        last = len(events)
     return best
 
 
@@ -784,11 +814,22 @@ def kernel_ms(fn, calls: int = 20) -> float:
 
 
 def device_kernels_per_call(fn, prefix, calls: int = 20) -> float:
-    """Device events per call of ``fn``; each must be a kernel named ``prefix``..."""
-    names = [name for name, _ in device_events(fn, calls)]
-    if not all(prefix in name for name in names):
-        raise AssertionError(f"other device work in {prefix} calls: {set(names)}")
-    return len(names) / calls
+    """Device events per call of ``fn``; each must be a kernel named ``prefix``...
+    The profiler can drop events but never adds any, and in some processes it
+    drops one of every window: where no window of ``calls`` calls comes out
+    whole, the count is that of the fullest window of ``2 * calls`` calls less
+    that of ``calls``, over ``calls`` (a constant loss a window cancels)."""
+    counts = []
+    for n in (calls, 2 * calls):
+        names = [name for name, _ in device_events(fn, n)]
+        if not all(prefix in name for name in names):
+            raise AssertionError(f"other device work in {prefix} calls: {set(names)}")
+        counts.append(len(names))
+        if len(names) % calls == 0:
+            return len(names) / n
+    print(f"device_kernels_per_call: {prefix} windows of {calls} and {2 * calls} calls "
+          f"short: {counts[0]} and {counts[1]} events", flush=True)
+    return (counts[1] - counts[0]) / calls
 
 
 def check_sums_launches(ops, gen):
@@ -796,11 +837,17 @@ def check_sums_launches(ops, gen):
     same bits (the ticket counter is re-armed), and two streams at once
     (one counter each) agree with the plain versions."""
     dy, x = sums_inputs(gen, (32, 32, 32, 256), torch.bfloat16)
-    _, odd = sums_inputs(gen, (3, 7, 5, 24), torch.float32)       # generic path
+    _, odd = sums_inputs(gen, (3, 7, 5, 20), torch.bfloat16)      # 40-byte rows: generic path
+    dy3, x3 = sums_inputs(gen, (2, 1000, 24), torch.bfloat16)     # 3 vectors a row
+    dy120, x120 = sums_inputs(gen, (32, 16, 16, 960), torch.bfloat16)   # 120 vectors a row
     per_call = {name: device_kernels_per_call(fn, "channel_sums_") for name, fn in (
         ("channel_sums", lambda: ops.channel_sums(x)),
         ("channel_dual_sums", lambda: ops.channel_dual_sums(dy, x)),
-        ("channel_sums generic", lambda: ops.channel_sums(odd)))}
+        ("channel_sums generic", lambda: ops.channel_sums(odd)),
+        ("channel_sums G=3", lambda: ops.channel_sums(x3)),
+        ("channel_dual_sums G=3", lambda: ops.channel_dual_sums(dy3, x3)),
+        ("channel_sums G=120", lambda: ops.channel_sums(x120)),
+        ("channel_dual_sums G=120", lambda: ops.channel_dual_sums(dy120, x120)))}
     if any(v != 1 for v in per_call.values()):
         raise AssertionError(f"device kernels per call: {per_call}")
     host_us = {name: host_us_per_call(fn) for name, fn in (
@@ -836,33 +883,55 @@ def check_sums_launches(ops, gen):
 
 
 def parent_sums(source):
-    """The parent commit's channel_sums.cu (two launches a call, partials
-    of ``channel_sums_max_blocks()`` rows), built with the port's nvcc flags
-    and called through its own C interface: fn(x) or fn(dy, x)."""
+    """The channel_sums kernels of an older commit: its ``csrc/channel_sums.cu``
+    (``source``) built with the port's nvcc flags, launched through that
+    commit's C interface (``channel_sums_max_clusters``, the 12-argument
+    ``channel_sums_launch``) on the grid that its own ``plan`` gives, read
+    from its ``ops/channel_sums.py`` copied beside the source (same name,
+    ``.py``): fn(x) or fn(dy, x)."""
     import ctypes
-    import os
+    import importlib.util
+    from pathlib import Path
 
     from uda_aerial_semantic_segmentation_research_tpu_torch.ops import _build
 
-    out = _build.BUILD_DIR / "parent" / "libchannel_sums_parent.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    include = _build.CSRC_DIR
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(include), "-o", str(out),
-                    os.fspath(source)], check=True, timeout=300)
+    source = Path(source).resolve()
+    planner = source.with_suffix(".py")
+    spec = importlib.util.spec_from_file_location("parent_channel_sums", planner)
+    parent_ops = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(parent_ops)
+    out = source.parent / "libchannel_sums_parent.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC_DIR), "-o",
+                    str(out), str(source)], check=True, timeout=300)
     lib = ctypes.CDLL(str(out))
-    lib.channel_sums_max_blocks.restype = ctypes.c_int
-    lib.channel_sums_launch.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-    rows = lib.channel_sums_max_blocks()
+    i32, i64, ptr = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+    lib.channel_sums_max_clusters.argtypes = [i32, i32, i32]
+    lib.channel_sums_max_clusters.restype = i32
+    lib.channel_sums_launch.argtypes = [ptr] * 4 + [i32, i32, i64, i32, i32, i64, i32, ptr]
+    lib.channel_sums_launch.restype = i32
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    limits, scratch = {}, [torch.zeros(1 << 16, dtype=torch.float32, device="cuda")]
 
     def call(a, b=None):
         c = a.shape[-1]
-        partials = torch.empty((rows, 2, c), dtype=torch.float32, device=a.device)
+        m = a.numel() // c
+        a_bf16 = int(a.dtype == torch.bfloat16)
+        b_kind = -1 if b is None else int(b.dtype == torch.bfloat16)
+        if (a_bf16, b_kind) not in limits:
+            counts = [min(lib.channel_sums_max_clusters(a_bf16, b_kind, k), sms // k)
+                      for k in parent_ops.CLUSTER_SIZES]
+            limits[a_bf16, b_kind] = tuple(max(n, 0) for n in counts)
+        p = parent_ops.plan(m, c, a.element_size(), 0 if b is None else b.element_size(),
+                            a.data_ptr() % 16 == 0 and (b is None or b.data_ptr() % 16 == 0),
+                            limits[a_bf16, b_kind], sms)
+        floats = parent_ops.SCRATCH_HEAD + p.partial_rows * 2 * c
+        if scratch[0].numel() < floats:         # the counter of a new buffer starts at 0
+            torch.cuda.synchronize()
+            scratch[0] = torch.zeros(floats, dtype=torch.float32, device="cuda")
         res = torch.empty((2, c), dtype=torch.float32, device=a.device)
         err = lib.channel_sums_launch(
-            a.data_ptr(), None if b is None else b.data_ptr(), partials.data_ptr(),
-            res.data_ptr(), int(a.dtype == torch.bfloat16),
-            int(b is not None and b.dtype == torch.bfloat16), a.numel() // c, c,
+            a.data_ptr(), None if b is None else b.data_ptr(), scratch[0].data_ptr(),
+            res.data_ptr(), a_bf16, max(b_kind, 0), m, c, p.blocks, p.rows_per_block, p.cluster,
             torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"parent channel_sums failed: CUDA error {err}")
@@ -871,29 +940,65 @@ def parent_sums(source):
     return call
 
 
+def widened_per_step(rows, census) -> dict:
+    """Kernel, event-pair, bound and library ms a step over ``census``
+    (shape: BatchNorms), sums plus dual, from ``check_sums`` rows."""
+    by_shape = {tuple(r["shape"]): r for r in rows}
+    total = lambda *keys: sum(census[s] * sum(by_shape[s][k] for k in keys) for s in census)
+    out = {"inputs": sum(census.values()), "shapes": len(census),
+           "kernel_ms": total("sums_kernel_ms", "dual_kernel_ms"),
+           "ms": total("sums_ms", "dual_ms"),
+           "bound_ms": total("sums_bound_ms", "dual_bound_ms"),
+           "library_ms": total("sums_library_ms", "dual_library_ms"),
+           "forward_kernel_ms": total("sums_kernel_ms"), "dual_kernel_ms": total("dual_kernel_ms")}
+    if all("sums_parent_kernel_ms" in by_shape[s] for s in census):
+        out["parent_kernel_ms"] = total("sums_parent_kernel_ms", "dual_parent_kernel_ms")
+        out["parent_ms"] = total("sums_parent_ms", "dual_parent_ms")
+    return out
+
+
 def compare_sums_with_parent(sums_ops, source, card):
-    """The new and the parent's sums kernels at the train step's 7 BatchNorm
-    shapes (bf16), same inputs, 20 launches per event pair on rotating cold
-    copies, in turns (parent, new, new, parent)."""
+    """The new and the parent's sums kernels (bf16, same inputs, 20 launches
+    per event pair on rotating cold copies, and the profiler's kernel time,
+    each in turns: parent, new, new, parent) at the resnet34 step's 7
+    BatchNorm shapes, the mobilenet_v2 U-Net's and DeepLabV3Plus's widened
+    shapes, and the resnet50 U-Net's, its head's and the discriminator's;
+    the mobilenet U-Net's widened inputs a step beside their bound and the
+    library."""
     parent = parent_sums(source)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    rows = [check_sums(sums_ops, gen, shape, torch.bfloat16, timed=True, parent=parent)
-            for shape in sorted(BN_SHAPES)]
-    step = lambda key: sum(r[key] * BN_SHAPES[tuple(r["shape"])] for r in rows)
+    sets = {"resnet34_step": BN_SHAPES, "mobilenet_unet_widened": MOBILENET_UNET_WIDENED,
+            "deeplab_widened": DEEPLAB_WIDENED,
+            "resnet50_head_discriminator": {s: 1 for s in sorted(
+                set(UDA_UNET_BN_SHAPES) | set(UDA_HEAD_BN_SHAPES) | set(DISC_BN_SHAPES))
+                if s not in BN_SHAPES}}
+    rows = {}
+    for shapes in sets.values():
+        for shape in sorted(shapes):
+            if shape not in rows:
+                rows[shape] = check_sums(sums_ops, gen, shape, torch.bfloat16, timed=True,
+                                         parent=parent)
+    step = lambda key: sum(rows[s][key] * n for s, n in BN_SHAPES.items())
     bound = step("sums_bound_ms") + step("dual_bound_ms")
     new_ms = step("sums_ms") + step("dual_ms")
     old_ms = step("sums_parent_ms") + step("dual_parent_ms")
+    keys = ("shape", "sums_ms", "sums_parent_ms", "dual_ms", "dual_parent_ms",
+            "sums_share_of_bound", "dual_share_of_bound", "sums_turns_ms", "dual_turns_ms",
+            "sums_kernel_turns_ms", "dual_kernel_turns_ms",
+            "sums_kernel_ms", "sums_parent_kernel_ms", "dual_kernel_ms", "dual_parent_kernel_ms",
+            "sums_bound_ms", "dual_bound_ms", "sums_library_ms", "dual_library_ms",
+            "sums_library_kernel_ms", "dual_library_kernel_ms", "max_rel_err",
+            "parent_max_rel_err")
     print(json.dumps({"sums_vs_parent": {
         "per_step_ms": new_ms, "parent_per_step_ms": old_ms, "bound_ms": bound,
         "share_of_bound": bound / new_ms, "parent_share_of_bound": bound / old_ms,
         "kernel_per_step_ms": step("sums_kernel_ms") + step("dual_kernel_ms"),
         "parent_kernel_per_step_ms": step("sums_parent_kernel_ms") + step("dual_parent_kernel_ms"),
-        "per_shape": [{k: r[k] for k in ("shape", "sums_ms", "sums_parent_ms", "dual_ms",
-                                         "dual_parent_ms", "sums_share_of_bound",
-                                         "dual_share_of_bound", "sums_turns_ms",
-                                         "dual_turns_ms", "sums_kernel_ms",
-                                         "sums_parent_kernel_ms", "dual_kernel_ms",
-                                         "dual_parent_kernel_ms")} for r in rows],
+        "mobilenet_unet_widened_per_step": widened_per_step(list(rows.values()),
+                                                            MOBILENET_UNET_WIDENED),
+        "per_shape": {name: [{k: rows[s][k] for k in keys} | {"batch_norms": n}
+                             for s, n in sorted(shapes.items())]
+                      for name, shapes in sets.items()},
         "card": card}}), flush=True)
 
 
@@ -3451,14 +3556,38 @@ def drive_architectures(counters, card, host_rng) -> dict:
     sums = []
     for shape in sorted(s for s in census_all if s not in covered):
         r = check_sums(sums_ops, gen, shape, torch.bfloat16, timed=True)
+        vectors = shape[-1] // 8 if shape[-1] % 8 == 0 else None   # bf16
         sums.append({k: r[k] for k in PER_SHAPE_KEYS}
                     | {"path": sums_path(sums_ops, shape), "batch_norms": census_all[shape],
+                       "vectors_per_row": vectors,
+                       "consumers": vectors and sums_ops.bulk_consumers(vectors),
                        "max_abs_err": r["max_abs_err"], "tolerance": r["tolerance"],
                        "sums_library_is": "torch.var_mean",
                        "sums_share_of_bound": r["sums_share_of_bound"],
                        "dual_share_of_bound": r["dual_share_of_bound"]})
+    # the rows that hold no power of two of vectors: the mobilenet U-Net's
+    # and DeepLabV3Plus's census of them, all on the bulk path, and the
+    # mobilenet U-Net's a step
+    widened = {}
+    for label, want in (("Unet(mobilenet_v2)", MOBILENET_UNET_WIDENED),
+                        ("DeepLabV3Plus(resnet34)", DEEPLAB_WIDENED)):
+        got = {ast.literal_eval(k): n for k, n in
+               models[label]["training"]["batch_norm_inputs"].items()}
+        odd = {s: n for s, n in got.items()
+               if s[-1] % 8 or sums_ops.bulk_consumers(s[-1] // 8) < sums_ops.THREADS}
+        if odd != want:
+            raise AssertionError(f"{label}: rows of no power of two of vectors {odd}, "
+                                 f"expected {want}")
+        paths = {sums_path(sums_ops, s) for s in odd}
+        if paths != {"bulk"}:
+            raise AssertionError(f"{label}: a widened input takes the {paths} path")
+        widened[label] = {"inputs": sum(odd.values()), "of": sum(got.values()),
+                          "shapes": len(odd), "paths": sorted(paths)}
+    widened["mobilenet_unet_per_step"] = widened_per_step(sums, MOBILENET_UNET_WIDENED)
+    print(f"phase 14 widened sums: {json.dumps(widened)}", flush=True)
     return {"models": models, "train_model": entry, "resize_on_card": resize,
-            "sums_new_shapes": sums, "launches": dict(run_counts), "card": card}
+            "sums_new_shapes": sums, "sums_widened": widened, "launches": dict(run_counts),
+            "card": card}
 
 
 def _architectures_child(card) -> dict:
@@ -3523,7 +3652,8 @@ def capture_checks(cbr, sums_ops, dihedral_ops, ce_ops, gen, host_rng) -> dict:
         x, k3, scale, shift = kernel_inputs(gen, b, h, w, ci, co, torch.bfloat16)
         res = captured_vs_eager(lambda: (cbr.conv_bn_relu(x, k3, scale, shift),))
         out["conv_bn_relu"].append({"shape": [b, h, w, ci, co], **res})
-    for shape in sorted(BN_SHAPES):                  # the train step's BatchNorm inputs
+    # the train step's BatchNorm inputs, and one of 120 vectors a row
+    for shape in sorted(BN_SHAPES) + [(32, 16, 16, 960)]:
         dy, x = sums_inputs(gen, shape, torch.bfloat16)
         res = captured_vs_eager(lambda: (sums_ops.channel_sums(x),
                                          sums_ops.channel_dual_sums(dy, x)))
@@ -5172,8 +5302,11 @@ def main(argv=None) -> int:
                              "whether they fit in device memory")
     parser.add_argument("--compare-sums-source", default=None, metavar="CU_FILE",
                         help="only time the channel_sums kernels against the ones "
-                             "built from this (older) source, at the train step's "
-                             "BatchNorm shapes")
+                             "built from this (older) channel_sums.cu, planned by the "
+                             "ops/channel_sums.py of the same commit copied beside it "
+                             "(same name, .py), at the BatchNorm shapes of the resnet34 "
+                             "step, the mobilenet_v2 U-Net, DeepLabV3Plus, resnet50 and "
+                             "the discriminators")
     parser.add_argument("--compare-dihedral-source", default=None, metavar="CU_FILE",
                         help="only time the dihedral_normalize kernel against the one "
                              "built from this (older) source, at the train step's shape")
@@ -5705,8 +5838,11 @@ def main(argv=None) -> int:
         "feature_discriminator_per_shape": [{k: r[k] for k in PER_SHAPE_KEYS}
                                             for r in head_sums_results],
         # phase 14: the BatchNorm inputs of the other families and the
-        # mobilenet_v2 U-Net that no earlier phase has, bulk and generic path
+        # mobilenet_v2 U-Net that no earlier phase has, and the mobilenet
+        # U-Net's 42 inputs of rows that hold no power of two of vectors a step
         "architectures_per_shape": architectures_result["sums_new_shapes"],
+        "mobilenet_unet_widened_per_step":
+            architectures_result["sums_widened"]["mobilenet_unet_per_step"],
     }, {
         "name": "dihedral_normalize", "route": "cuda",
         "source": f"{src}/dihedral_normalize.cu",

@@ -25,6 +25,8 @@ from uda_aerial_semantic_segmentation_research_tpu_torch.ops.channel_sums import
     FOLD_BYTES,
     GENERIC_MIN_ROWS,
     MIN_BLOCK_BYTES,
+    THREADS,
+    bulk_consumers,
     channel_dual_sums,
     channel_dual_sums_reference,
     channel_sums,
@@ -325,20 +327,155 @@ def test_plan_takes_the_smallest_cluster_that_keeps_the_fold_small():
     assert plan(1 << 20, 16, 2, 0, True, (0, 66, 33, 16), H100_SMS).cluster == 2
 
 
+# BatchNorm inputs of the B=32 mobilenet_v2 U-Net train step at 512 px whose
+# rows are not a power of two of 16-byte vectors in bf16 (NHWC shape:
+# BatchNorms; 42 of its 62), and DeepLabV3Plus's low_project at resnet34
+MOBILENET_UNET_SHAPES = {(32, 128, 128, 24): 2, (32, 256, 256, 96): 1, (32, 128, 128, 96): 1,
+                         (32, 32, 32, 96): 3, (32, 128, 128, 144): 3, (32, 64, 64, 144): 1,
+                         (32, 16, 16, 160): 3, (32, 64, 64, 192): 5, (32, 32, 32, 192): 1,
+                         (32, 16, 16, 320): 1, (32, 32, 32, 384): 8, (32, 32, 32, 576): 5,
+                         (32, 16, 16, 576): 1, (32, 16, 16, 960): 6, (32, 16, 16, 1280): 1}
+DEEPLAB_LOW_PROJECT_SHAPE = (32, 128, 128, 48)
+WIDENED_SHAPES = sorted(MOBILENET_UNET_SHAPES) + [DEEPLAB_LOW_PROJECT_SHAPE]
+
+
+def _assert_bulk_plan(p, m, c, elts):
+    """A bulk plan of one wave whose rows cover the input, and a consumer
+    count that keeps each thread on one channel group."""
+    g = c * max(elts) // 16
+    assert p.cluster in CLUSTER_SIZES
+    assert p.blocks % p.cluster == 0 and p.blocks <= H100_SMS
+    assert p.partial_rows == p.blocks // p.cluster
+    assert p.rows_per_block * p.blocks >= m
+    t = bulk_consumers(g)
+    assert t % g == 0 and g <= t <= THREADS and THREADS - t < g
+
+
+@pytest.mark.parametrize("shape", WIDENED_SHAPES,
+                         ids=["x".join(map(str, s)) for s in WIDENED_SHAPES])
+@pytest.mark.parametrize("elts", [(2, 0), (2, 2)], ids=["sums_bf16", "dual_bf16"])
+def test_plan_sends_the_mobilenet_and_deeplab_inputs_to_the_bulk_path(shape, elts):
+    """Rows of 3 to 160 vectors (C = 24 .. 1280 in bf16) take the bulk path;
+    the partial rows stay under 1% of the input bytes and the last block
+    reads at most FOLD_BYTES of them, as at the resnet34 step's shapes."""
+    m, c = int(np.prod(shape[:-1])), shape[-1]
+    p = plan(m, c, *elts, True, H100_CLUSTERS, H100_SMS)
+    _assert_bulk_plan(p, m, c, elts)
+    input_bytes = m * c * sum(elts)
+    assert p.partial_rows * 2 * c * 4 <= min(FOLD_BYTES, 0.01 * input_bytes)
+    assert input_bytes // p.blocks >= MIN_BLOCK_BYTES
+
+
+@pytest.mark.parametrize("name,encoder,widened", [
+    ("Unet", "mobilenet_v2", 42), ("DeepLabV3Plus", "resnet34", 1)])
+def test_plan_sends_every_bf16_batch_norm_input_of_the_model_to_the_bulk_path(
+        name, encoder, widened):
+    """Each train-mode BatchNorm input of the model (its module tree, one
+    forward at 64 px) takes the bulk path in bf16, forward and dual; the
+    rows that hold no power of two of vectors are the census above."""
+    import collections
+
+    from uda_aerial_semantic_segmentation_research_tpu_torch.models import create_model
+
+    model = create_model(name, encoder, encoder_weights=None, classes=3, seed=0,
+                         dtype=torch.float32, device="cpu").train()
+    channels = []
+    for mod in model.modules():
+        if isinstance(mod, BatchNorm):
+            mod.register_forward_pre_hook(lambda mod, inp: channels.append(inp[0].shape[1]))
+    with torch.no_grad():
+        model(torch.zeros(1, 64, 64, 3))
+    assert len(channels) == sum(isinstance(m, BatchNorm) for m in model.modules())
+    for c in channels:
+        for elts in ((2, 0), (2, 2)):
+            assert plan(4096, c, *elts, True, H100_CLUSTERS, H100_SMS).cluster > 0, c
+    odd = collections.Counter(c for c in channels if THREADS % (c // 8))
+    census = collections.Counter()
+    for shape, n in MOBILENET_UNET_SHAPES.items() if name == "Unet" else [
+            (DEEPLAB_LOW_PROJECT_SHAPE, 1)]:
+        census[shape[-1]] += n
+    assert odd == census and sum(odd.values()) == widened
+
+
 @pytest.mark.parametrize("case", [
-    dict(m=6, c=24, elts=(2, 0), aligned=True),       # bf16 row of 48 bytes
+    dict(m=6, c=24, elts=(2, 0)),         # bf16 row of 48 bytes: 3 vectors
+    dict(m=6, c=48, elts=(4, 0)),         # 12 vectors a row: no power of two
+    dict(m=6, c=24, elts=(2, 4)),         # bf16 rows of 48, f32 of 96 bytes: 6 vectors
+    dict(m=1, c=8, elts=(2, 2)),          # one vector a row
+    dict(m=9, c=1280, elts=(2, 0)),       # 160 vectors: 160 consumers
+    dict(m=9, c=2048, elts=(2, 2)),       # 256 vectors, the most
+    dict(m=9, c=1024, elts=(4, 2)),       # 256 vectors of the f32 operand
+    dict(m=100000, c=40, elts=(2, 2)),    # 5 vectors, many rows
+], ids=["c24_bf16", "c48_f32", "mixed_c24", "c8_bf16", "c1280_bf16", "c2048_bf16",
+        "mixed_c1024", "c40_many_rows"])
+def test_plan_takes_any_row_of_up_to_256_vectors_on_the_bulk_path(case):
+    p = plan(case["m"], case["c"], *case["elts"], True, H100_CLUSTERS, H100_SMS)
+    _assert_bulk_plan(p, case["m"], case["c"], case["elts"])
+
+
+@pytest.mark.parametrize("case", [
     dict(m=6, c=12, elts=(4, 2), aligned=True),       # f32 rows of 48, bf16 of 24 bytes
     dict(m=6, c=16, elts=(4, 0), aligned=False),      # a view 4 bytes off
-    dict(m=6, c=48, elts=(4, 0), aligned=True),       # 12 vectors a row: no power of two
+    dict(m=6, c=24, elts=(2, 2), aligned=False),      # a bf16 view 2 bytes off
+    dict(m=6, c=20, elts=(2, 0), aligned=True),       # bf16 row of 40 bytes
     dict(m=6, c=4096, elts=(2, 0), aligned=True),     # 512 vectors a row > 256 threads
+    dict(m=6, c=1028, elts=(4, 0), aligned=True),     # 257 vectors a row
+    dict(m=6, c=2050, elts=(4, 0), aligned=True),     # f32 row of 8200 bytes
     dict(m=100000, c=3, elts=(4, 4), aligned=True),
-], ids=["c24_bf16", "mixed_c12", "unaligned", "c48_f32", "c4096_bf16", "c3_many_rows"])
+], ids=["mixed_c12", "unaligned", "unaligned_bf16", "c20_bf16", "c4096_bf16", "c1028_f32",
+        "c2050_f32", "c3_many_rows"])
 def test_plan_sends_what_the_bulk_kernel_cannot_take_to_the_generic_path(case):
     p = plan(case["m"], case["c"], *case["elts"], case["aligned"], H100_CLUSTERS, H100_SMS)
     assert p.cluster == 0
     assert p.partial_rows == p.blocks <= H100_SMS
     assert p.rows_per_block * p.blocks >= case["m"]
     assert p.blocks == 1 or p.rows_per_block >= GENERIC_MIN_ROWS
+
+
+# vectors a row of every class the bulk path takes: the powers of two, and
+# the mobilenet_v2 / DeepLabV3Plus rows in bf16 (C / 8)
+VECTOR_CLASSES = [1, 2, 4, 8, 16, 32, 64, 128, 256, 3, 6, 12, 18, 20, 24, 40, 48, 72, 120, 160]
+
+
+@pytest.mark.parametrize("g", VECTOR_CLASSES)
+def test_bulk_consumer_layout_reads_each_vector_once_on_one_channel_group(g):
+    """A numpy model of the bulk kernel's consumer loop and epilogue: over
+    stages of ``STAGE_BYTES / (16 g)`` rows (and a ragged last one), consumer
+    t reads vectors t, t + T', ... of each stage; every vector is read
+    exactly once, each consumer's channel group (vector index mod g) never
+    changes, and the epilogue's holders (after the shuffles where g is a
+    power of two below 32) count every consumer of a group exactly once."""
+    t_prime = bulk_consumers(g)
+    stage_rows = 32768 // (16 * g)
+    group_of = np.full(THREADS, -1)
+    for rows in (stage_rows, max(1, stage_rows // 3)):       # a full and a ragged stage
+        n_vec = rows * g
+        reads = np.zeros(n_vec, dtype=int)
+        for t in range(THREADS):
+            if t >= t_prime:
+                continue                                    # loads nothing
+            v = np.arange(t, n_vec, t_prime)
+            reads[v] += 1
+            if v.size:
+                assert np.all(v % g == v[0] % g)
+                assert group_of[t] in (-1, v[0] % g)
+                group_of[t] = v[0] % g
+        assert np.all(reads == 1)
+    consumers = np.arange(t_prime)
+    # whose sums each thread holds after the shuffle fold
+    held = [{t} for t in range(THREADS)]
+    shuffled = g < 32 and t_prime == THREADS
+    if shuffled:
+        off = 16
+        while off >= g:
+            held = [held[t] | held[t ^ off] if t // 32 == (t ^ off) // 32 else None
+                    for t in range(THREADS)]
+            off //= 2
+    step = 32 if shuffled else g
+    for grp in range(g):
+        holders = range(grp, t_prime, step)
+        counted = [t for h in holders for t in held[h]]
+        assert sorted(counted) == list(consumers[consumers % g == grp])
 
 
 def test_plan_shrinks_the_grid_for_small_inputs():
@@ -384,27 +521,34 @@ def test_kernels_match_plain_versions_on_gpu():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    # the bulk path (C=16..512, M=1, ragged rows) and the generic one (C=24
-    # in bf16, 3, 1000, 8 in bf16, C/VEC not a power of two), all four dtype
-    # pairs
+    # the bulk path (C=16..512, M=1, ragged rows; rows of 3 to 160 vectors:
+    # C = 24 .. 1280 in bf16, 12 .. 640 in f32, with many rows at 3 and
+    # 160) and the generic one (C=3, 1000, 4096; f32 above C=1024), all four
+    # dtype pairs
     shapes = [(2, 16, 16, 16), (3, 7, 5, 16), (2, 8, 8, 64), (1, 4, 4, 512), (5, 3, 2048),
               (3, 7, 5, 24), (4, 9, 3), (2, 1000), (1, 1, 1, 8), (70000, 32), (1, 16),
-              (1, 24), (1, 512), (7, 48), (9, 4096)]
+              (1, 24), (1, 512), (7, 48), (9, 4096), (5, 9, 96), (2, 3, 11, 144),
+              (4, 5, 160), (3, 4, 192), (2, 5, 320), (1, 3, 7, 384), (2, 6, 576), (3, 960),
+              (2, 5, 1280), (70001, 24), (1000, 1280), (20, 40, 40)]
     for shape in shapes:
         for dt_x, dt_dy in ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
                             (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)):
             _check_on_gpu(gen, shape, dt_x, dt_dy)
     # every BatchNorm input of the B=32 train step in bf16, one in f32, and
-    # the mixed dual form at one
+    # the mixed dual form at one; the mobilenet_v2 U-Net's and DeepLabV3Plus's
+    # bulk-path inputs of the new row classes at B=4
     for shape in TRAIN_STEP_SHAPES:
         _check_on_gpu(gen, shape, torch.bfloat16, torch.bfloat16)
+    for shape in WIDENED_SHAPES:
+        _check_on_gpu(gen, (4, *shape[1:]), torch.bfloat16, torch.bfloat16)
     _check_on_gpu(gen, (32, 128, 128, 64), torch.float32, torch.float32)
     _check_on_gpu(gen, (32, 64, 64, 128), torch.bfloat16, torch.float32)
-    # an unaligned view takes the generic path and still agrees
+    # unaligned views (f32 4 bytes off, bf16 2 bytes off) take the generic
+    # path and still agree
     base = torch.randn(4 * 33 * 16 + 1, generator=gen, device="cuda")
-    view = base[1:].view(4, 33, 16)
-    _assert_sums_close(channel_sums(view)[0], view.double().sum((0, 1)).float(),
-                       view.double().abs().sum((0, 1)).float())
+    for view in (base[1:].view(4, 33, 16), base.bfloat16()[1:].view(4, 33, 16)):
+        _assert_sums_close(channel_sums(view)[0], view.double().sum((0, 1)).float(),
+                           view.double().abs().sum((0, 1)).float())
     with pytest.raises(ValueError):
         channel_sums(torch.zeros(2, 8, 4, 4, device="cuda").permute(0, 2, 3, 1))
     with pytest.raises(TypeError):

@@ -25,8 +25,9 @@
 //   the (2, C) result and sets the counter back to 0 for the next call on the
 //   stream.  The fold order does not depend on which block arrives last, so
 //   the same input gives the same bits on every run.
-// - Bulk path (every row a multiple of 16 bytes, 16-byte aligned pointers,
-//   C/VEC a power of two <= 256; every BatchNorm of the step): persistent
+// - Bulk path (16-byte aligned pointers, every operand's row a multiple of
+//   16 bytes, G = C / VEC <= 256 vectors of the wider type a row; every
+//   BatchNorm input of every bf16 model the port trains): persistent
 //   blocks, one per SM (the ring takes 128-192 KB of shared memory), fewer
 //   where the input is small (at least 64 KB per block), so the grid is one
 //   wave.  A block takes a contiguous range of rows.  Thread 0 streams it
@@ -34,23 +35,34 @@
 //   operand with 1-d bulk copies (cp.async.bulk, the TMA's linear form) that
 //   complete on mbarriers: 96-128 KB in flight per SM with no registers
 //   spent on it (16 KB stages, 48-64 KB in flight, left 12-18% of the byte
-//   bound on the 268 MB inputs).  The other threads read the stage from
-//   shared memory in 16-byte vectors; a stage starts on a row, and the block
-//   size is a multiple of the vectors per row, so a thread always sees the
-//   same channels ("index modulo C") and keeps its sums in registers.
-// - Epilogue: lanes that hold the same channels combine with __shfl_xor_sync,
-//   then one fixed-order pass over at most 8 holders per channel writes the
-//   block's row into shared memory.  The blocks of a cluster fold their rows
-//   through distributed shared memory (block r sums a slice of the columns
-//   over ranks 0..n-1) into one partial row per cluster.  The cluster size
-//   (1, 2, 4 or 8, chosen at launch) is the smallest that keeps what the
-//   last block reads under 64 KB: the large inputs have few channels and use
-//   all 132 SMs (clusters of 8 leave 4 idle), the 512-channel ones fold 8
-//   rows at a time so the last block reads 16 rows, not 128.
-// - Generic path (any other C, or an unaligned pointer; no BatchNorm of the
-//   main path takes it): threads along x take channels, threads along y take
-//   rows, scalar loads, still coalesced; one partial row per block (at least
-//   128 rows a block) and the same last-block fold.
+//   bound on the 268 MB inputs).  The first T' = G * floor(256 / G) threads
+//   (the consumers: all 256 where G is a power of two; 255 for G = 3, 240
+//   for G = 120, 160 for G = 160) read the stage from shared memory in
+//   16-byte vectors, stepping by T'; a stage starts on a row and T' is a
+//   multiple of G, so a consumer always sees the same channels ("index
+//   modulo C") and keeps its sums in registers.  Where T' is 256 the loop
+//   steps by that constant.
+// - Epilogue: where G is a power of two below 32, lanes that hold the same
+//   channels combine with __shfl_xor_sync first (holders g + 32 j); else
+//   every consumer is a holder (g, g + G, ... below T': at most 85, for
+//   G = 3).  The holders write their sums to shared memory and one
+//   fixed-order pass over the holders of each channel writes the block's
+//   row.  The blocks of a cluster fold their rows through distributed
+//   shared memory (block r sums a slice of the columns over ranks 0..n-1)
+//   into one partial row per cluster.  The cluster size (1, 2, 4 or 8,
+//   chosen at launch) is the smallest that keeps what the last block reads
+//   under 64 KB: the large inputs have few channels and use all 132 SMs
+//   (clusters of 8 leave 4 idle), the 512-channel ones fold 8 rows at a
+//   time so the last block reads 15-16 rows, not 128.  Above 512 channels no
+//   cluster size does, so the plan runs fewer clusters of 8 (C=960: 8, 64
+//   blocks; C=2048: 4); that is faster than the full grid (PERF.md, section 6).
+//   The last block keeps 16 loads in flight a thread (fold_columns).
+// - Generic path (what the bulk path cannot take: an unaligned pointer, a
+//   row that is not a multiple of 16 bytes, G > 256, i.e. bf16 C > 2048 or
+//   a float32 operand with C > 1024; no BatchNorm input of a bf16 model the
+//   port trains takes it): threads along x take channels, threads along y
+//   take rows, scalar loads, still coalesced; one partial row per block (at
+//   least 128 rows a block) and the same last-block fold.
 //
 // The grid, the rows per block and the scratch size are planned by the
 // caller (ops/channel_sums.py::plan); the entry point checks the plan against
@@ -101,6 +113,64 @@ struct Bulk {
   static_assert(4 * (THREADS * RED + 2 * THREADS * VEC) <= RING_BYTES, "epilogue overlay");
 };
 
+__device__ __forceinline__ void add4(float4& t, const float4& v) {
+  t.x += v.x;
+  t.y += v.y;
+  t.z += v.z;
+  t.w += v.w;
+}
+
+// Columns j, j + THREADS, ... (COLS of them; one at or past n4 reads column
+// j again and is not written) of `rows` rows of n4 float4s, each summed in
+// row order into out.  The loads of CHUNK rows of every column are issued
+// before any of them is added, so a chunk costs one L2 round trip; a loop
+// left to the compiler's unrolling runs the rows past its last whole
+// unrolled trip (all of them, below 17 rows) as a remainder loop that waits
+// for each load in turn.
+template <int COLS, int CHUNK>
+__device__ __forceinline__ void fold_columns(const float4* p4, int rows, int n4,
+                                             float4* __restrict__ o4) {
+  for (int j = threadIdx.x; j < n4; j += COLS * THREADS) {
+    bool in[COLS];
+    float4 t[COLS];
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) {
+      in[c] = j + c * THREADS < n4;
+      t[c] = __ldcg(p4 + (in[c] ? j + c * THREADS : j));
+    }
+    int r0 = 1;
+    for (; r0 + CHUNK <= rows; r0 += CHUNK) {
+      float4 v[COLS][CHUNK];
+#pragma unroll
+      for (int k = 0; k < CHUNK; ++k)
+#pragma unroll
+        for (int c = 0; c < COLS; ++c)
+          v[c][k] = __ldcg(p4 + (size_t)(r0 + k) * n4 + (in[c] ? j + c * THREADS : j));
+#pragma unroll
+      for (int k = 0; k < CHUNK; ++k)
+#pragma unroll
+        for (int c = 0; c < COLS; ++c) add4(t[c], v[c][k]);
+    }
+    if (r0 < rows) {
+      float4 v[COLS][CHUNK];
+#pragma unroll
+      for (int k = 0; k < CHUNK; ++k)
+#pragma unroll
+        for (int c = 0; c < COLS; ++c)
+          if (r0 + k < rows)
+            v[c][k] = __ldcg(p4 + (size_t)(r0 + k) * n4 + (in[c] ? j + c * THREADS : j));
+#pragma unroll
+      for (int k = 0; k < CHUNK; ++k)
+#pragma unroll
+        for (int c = 0; c < COLS; ++c)
+          if (r0 + k < rows) add4(t[c], v[c][k]);
+    }
+#pragma unroll
+    for (int c = 0; c < COLS; ++c)
+      if (in[c]) o4[j + c * THREADS] = t[c];
+  }
+}
+
 // Every thread of every block calls this once its block's partial rows are
 // written.  The block that draws the last ticket sums `rows` rows of n floats
 // in row order into out (threads along the row, so the loads coalesce) and
@@ -122,19 +192,11 @@ __device__ void fold_last(const float* partials, int rows, int n, float* __restr
   if ((n & 3) == 0) {
     const float4* p4 = reinterpret_cast<const float4*>(partials);
     float4* o4 = reinterpret_cast<float4*>(out);
-    const int n4 = n >> 2;
-    for (int j = threadIdx.x; j < n4; j += THREADS) {
-      float4 t = __ldcg(p4 + j);
-#pragma unroll 16
-      for (int r = 1; r < rows; ++r) {
-        const float4 v = __ldcg(p4 + (size_t)r * n4 + j);
-        t.x += v.x;
-        t.y += v.y;
-        t.z += v.z;
-        t.w += v.w;
-      }
-      o4[j] = t;
-    }
+    // 16 loads in flight a thread: one column of 16 rows, or two of 8
+    if ((n >> 2) > THREADS)
+      fold_columns<2, 8>(p4, rows, n >> 2, o4);
+    else
+      fold_columns<1, 16>(p4, rows, n >> 2, o4);
   } else {
     for (int j = threadIdx.x; j < n; j += THREADS) {
       float t = __ldcg(partials + j);
@@ -144,6 +206,33 @@ __device__ void fold_last(const float* partials, int rows, int n, float* __restr
     }
   }
   if (threadIdx.x == 0) *counter = 0u;  // the next launch on this stream starts from 0
+}
+
+// Consumers of the bulk kernel for G vectors a row: the most threads of the
+// block that is a multiple of G (THREADS where G is a power of two).
+__host__ __device__ constexpr int bulk_consumers(int G) { return G * (THREADS / G); }
+
+// One consumer's share of a stage: vectors v = first, first + stride, ...
+// below n_vec, added into its sums.  STRIDE is the stride where it is known
+// when compiled (THREADS), 0 where it is `consumers`.
+template <int STRIDE, typename TA, typename TB, bool DUAL, int VEC>
+__device__ __forceinline__ void consume(const Pack<TA, VEC>* pa, const Pack<TB, VEC>* pb,
+                                        int first, int n_vec, int consumers, float (&s)[VEC],
+                                        float (&q)[VEC]) {
+  const int stride = STRIDE > 0 ? STRIDE : consumers;
+#pragma unroll 4
+  for (int v = first; v < n_vec; v += stride) {
+    const Pack<TA, VEC> va = pa[v];
+    Pack<TB, VEC> vb;
+    if (DUAL) vb = pb[v];
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      const float fa = to_f32(va.v[k]);
+      const float fb = DUAL ? to_f32(vb.v[k]) : fa;
+      s[k] += fa;
+      q[k] += fa * fb;
+    }
+  }
 }
 
 // a, b: (M, C); block i takes rows [i * rows_per_block, +rows_per_block).
@@ -161,7 +250,8 @@ channel_sums_bulk_kernel(const TA* __restrict__ a, const TB* __restrict__ b,
   unsigned char* ring = smem + RING_OFFSET;
 
   const int tid = threadIdx.x;
-  const int G = C / VEC;                               // vectors per row: a power of two <= THREADS
+  const int G = C / VEC;                               // vectors per row, 1..THREADS
+  const int consumers = bulk_consumers(G);             // a multiple of G
   const int stage_rows = STAGE_BYTES / (C * K::WIDEST);
   const uint32_t a_row = C * sizeof(TA);
   const uint32_t b_row = DUAL ? C * sizeof(TB) : 0;
@@ -202,19 +292,10 @@ channel_sums_bulk_kernel(const TA* __restrict__ a, const TB* __restrict__ b,
     const unsigned char* base = ring + slot * slot_bytes;
     const Pack<TA, VEC>* pa = reinterpret_cast<const Pack<TA, VEC>*>(base);
     const Pack<TB, VEC>* pb = reinterpret_cast<const Pack<TB, VEC>*>(base + stage_rows * a_row);
-#pragma unroll 4
-    for (int v = tid; v < n_vec; v += THREADS) {
-      const Pack<TA, VEC> va = pa[v];
-      Pack<TB, VEC> vb;
-      if (DUAL) vb = pb[v];
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) {
-        const float fa = to_f32(va.v[k]);
-        const float fb = DUAL ? to_f32(vb.v[k]) : fa;
-        s[k] += fa;
-        q[k] += fa * fb;
-      }
-    }
+    if (consumers == THREADS)
+      consume<THREADS, TA, TB, DUAL>(pa, pb, tid, n_vec, consumers, s, q);
+    else if (tid < consumers)
+      consume<0, TA, TB, DUAL>(pa, pb, tid, n_vec, consumers, s, q);
     __syncthreads();  // every thread is done with this slot
     if (tid == 0 && i + K::STAGES < n_stages) {
       fence_proxy_async();
@@ -222,11 +303,13 @@ channel_sums_bulk_kernel(const TA* __restrict__ a, const TB* __restrict__ b,
     }
   }
 
-  // thread t holds channels (t % G) * VEC .. + VEC.  With G < 32 the lanes
-  // t, t + G, ... of a warp hold the same channels: fold them by shuffles,
-  // after which lane l < G holds its warp's sums.  Holders of channel group g
-  // are then threads g + j * max(G, 32), at most THREADS / 32 = 8 of them.
-  if (G < 32) {
+  // consumer t holds channels (t % G) * VEC .. + VEC.  Where G is a power of
+  // two below 32, the lanes t, t + G, ... of a warp hold the same channels:
+  // fold them by shuffles, after which lane l < G holds its warp's sums, and
+  // the holders of channel group g are threads g + j * 32 (8 of them).
+  // Otherwise every consumer is a holder: g + j * G below `consumers`.
+  const bool shuffled = G < 32 && consumers == THREADS;
+  if (shuffled) {
     for (int off = 16; off >= G; off >>= 1) {
 #pragma unroll
       for (int k = 0; k < VEC; ++k) {
@@ -235,13 +318,13 @@ channel_sums_bulk_kernel(const TA* __restrict__ a, const TB* __restrict__ b,
       }
     }
   }
-  const int step = G < 32 ? 32 : G;
+  const int step = shuffled ? 32 : G;
   float* s_red = reinterpret_cast<float*>(ring);  // [THREADS][RED]
   float* s_part = s_red + THREADS * K::RED;       // [2][C]: this block's row
   cg::cluster_group cluster = cg::this_cluster();
   const int n = (int)cluster.num_blocks();
   float* prow = partials + (size_t)(blockIdx.x / n) * 2 * C;  // the cluster's row
-  if (tid % step < G) {
+  if (tid < consumers && tid % step < G) {
 #pragma unroll
     for (int k = 0; k < VEC; ++k) {
       s_red[tid * K::RED + k] = s[k];
@@ -254,8 +337,17 @@ channel_sums_bulk_kernel(const TA* __restrict__ a, const TB* __restrict__ b,
     const int c = o - m * C;
     const int g = c / VEC;
     const int k = c - g * VEC;
+    // the holders in order, 8 loads issued before they are added
     float t = 0.f;
-    for (int th = g; th < THREADS; th += step) t += s_red[th * K::RED + m * VEC + k];
+    for (int th0 = g; th0 < consumers; th0 += 8 * step) {
+      float v[8];
+#pragma unroll
+      for (int h = 0; h < 8; ++h)
+        if (th0 + h * step < consumers) v[h] = s_red[(th0 + h * step) * K::RED + m * VEC + k];
+#pragma unroll
+      for (int h = 0; h < 8; ++h)
+        if (th0 + h * step < consumers) t += v[h];
+    }
     if (n == 1)
       prow[o] = t;
     else
@@ -366,11 +458,14 @@ cudaError_t run(const void* a, const void* b, float* scratch, float* out, long l
   float* partials = scratch + SCRATCH_HEAD;
   if (blocks < 1 || rows_per_block < 1 || rows_per_block * blocks < M) return cudaErrorInvalidValue;
   if (cluster > 0) {
+    // every operand's row a whole number of 16-byte vectors, G of them of
+    // the wider type, 1..THREADS: then the consumers, bulk_consumers(G),
+    // are a multiple of G and at most THREADS
     const int G = C / K::VEC;
     const bool fits = cluster <= MAX_CLUSTER && (cluster & (cluster - 1)) == 0 &&
                       blocks % cluster == 0 && (C * sizeof(TA)) % 16 == 0 &&
                       (!DUAL || (C * sizeof(TB)) % 16 == 0) && G >= 1 && G <= THREADS &&
-                      THREADS % G == 0 && aligned16(a) && (!DUAL || aligned16(b));
+                      aligned16(a) && (!DUAL || aligned16(b));
     if (!fits) return cudaErrorInvalidValue;
     BulkLaunch launch(blocks, cluster, K::SMEM, stream);
     const cudaError_t err = cudaLaunchKernelEx(&launch.cfg, channel_sums_bulk_kernel<TA, TB, DUAL>,

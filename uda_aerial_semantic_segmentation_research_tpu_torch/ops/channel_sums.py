@@ -79,6 +79,14 @@ class Plan(NamedTuple):
     partial_rows: int     # rows of (2, C) floats in the scratch
 
 
+def bulk_consumers(vecs_per_row: int) -> int:
+    """Threads of a bulk-kernel block that read the ring for rows of
+    ``vecs_per_row`` 16-byte vectors: the most of ``THREADS`` that is a
+    multiple of it, so each keeps one channel group (the kernel's
+    ``bulk_consumers``)."""
+    return vecs_per_row * (THREADS // vecs_per_row)
+
+
 @functools.lru_cache(maxsize=256)
 def plan(m: int, c: int, a_elt: int, b_elt: int, aligned: bool,
          max_clusters: tuple[int, ...], sms: int) -> Plan:
@@ -87,25 +95,25 @@ def plan(m: int, c: int, a_elt: int, b_elt: int, aligned: bool,
     with ``sms`` SMs that runs ``max_clusters[i]`` clusters of
     ``CLUSTER_SIZES[i]`` bulk-kernel blocks at once.
 
-    Bulk path when every row is a multiple of 16 bytes, the pointers are
-    16-byte ``aligned`` and the 16-byte vectors per row are a power of two
-    up to ``THREADS``: the smallest cluster whose full grid leaves the last
-    block at most ``FOLD_BYTES`` of partial rows to read, and fewer clusters
-    where the input gives a block less than ``MIN_BLOCK_BYTES``.  Otherwise
-    the generic path: at least ``GENERIC_MIN_ROWS`` rows a block, at most
-    one block per SM, one partial row per block.
+    Bulk path when the pointers are 16-byte ``aligned``, every row is a
+    multiple of 16 bytes and holds at most ``THREADS`` 16-byte vectors of
+    the wider type: the smallest cluster whose full grid leaves the last
+    block at most ``FOLD_BYTES`` of partial rows to read (the largest where
+    none does, C > 512, with no more clusters than keep it so), and fewer
+    clusters where the input gives a block less than ``MIN_BLOCK_BYTES``.
+    Otherwise the generic path: at least ``GENERIC_MIN_ROWS`` rows a block,
+    at most one block per SM, one partial row per block.
     """
     elts = (a_elt, b_elt) if b_elt else (a_elt,)
-    vecs_per_row = c * max(elts) // 16
     bulk = (aligned and all(c * e % 16 == 0 for e in elts)
-            and vecs_per_row <= THREADS and THREADS % vecs_per_row == 0)
+            and c * max(elts) // 16 <= THREADS)
     if not bulk:
         blocks = max(1, min(sms, m // GENERIC_MIN_ROWS))
         return Plan(0, blocks, -(-m // blocks), blocks)
     sizes = [(k, n) for k, n in zip(CLUSTER_SIZES, max_clusters) if n > 0]
     cluster, most = next(((k, n) for k, n in sizes if n * 2 * c * 4 <= FOLD_BYTES), sizes[-1])
     wanted = -(-m * c * sum(elts) // (cluster * MIN_BLOCK_BYTES))
-    clusters = max(1, min(most, wanted))
+    clusters = max(1, min(most, wanted, FOLD_BYTES // (2 * c * 4)))
     return Plan(cluster, clusters * cluster, -(-m // (clusters * cluster)), clusters)
 
 
