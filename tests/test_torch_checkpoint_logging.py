@@ -293,7 +293,7 @@ def test_step_timer_and_trace(tmp_path):
     summary = timer.summary()
     assert summary["steps"] == 3 and summary["step_ms_p50"] == pytest.approx(20.0)
     assert summary["items_per_sec"] == pytest.approx(4 / 0.02)
-    with timer.step(sync=torch.ones(2)):
+    with timer.step():
         pass
     assert timer.summary()["steps"] == 4
     assert profiling.StepTimer().summary() == {"steps": 0}

@@ -12,6 +12,10 @@ The port's copy of the JAX package's ``data/loader.py``:
   sent with a non-blocking copy on a stream of its own, so the copy of
   batch N+1 runs under the compute of batch N; the compute stream waits on
   an event recorded after each batch's copy.
+
+Under a profiler, the time the consumer waits for a batch is the span
+``uda.data.wait`` and the staging of one batch ``uda.data.stage``
+(``utils.profiling.annotate``).
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 
 from uda_aerial_semantic_segmentation_research_tpu_torch.data.dataset import Subset
+from uda_aerial_semantic_segmentation_research_tpu_torch.utils.profiling import annotate
 
 
 def _unwrap_raw(dataset, idx: int):
@@ -110,7 +115,9 @@ class DataLoader:
         batches = self._batched_indices()
         if self.num_workers <= 0:
             for chunk in batches:
-                yield _stack([fetch(self.dataset, i) for i in chunk])
+                with annotate("uda.data.wait"):
+                    batch = _stack([fetch(self.dataset, i) for i in chunk])
+                yield batch
             return
 
         q: queue.Queue = queue.Queue(maxsize=self.num_workers + 1)
@@ -141,7 +148,8 @@ class DataLoader:
         t.start()
         try:
             while True:
-                item = q.get()
+                with annotate("uda.data.wait"):
+                    item = q.get()
                 if item is _SENTINEL:
                     break
                 if isinstance(item, BaseException):
@@ -236,7 +244,8 @@ def prefetch_to_device(iterator, device, size: int = 2, cast_masks_uint8: bool =
     pending = collections.deque()
     it = iter(iterator)
     for item in it:
-        pending.append(ship(item))
+        with annotate("uda.data.stage"):
+            pending.append(ship(item))
         if len(pending) >= size:
             yield release(pending.popleft())
     while pending:

@@ -51,6 +51,7 @@ from uda_aerial_semantic_segmentation_research_tpu_torch.utils.checkpoint import
 from uda_aerial_semantic_segmentation_research_tpu_torch.utils.device import (
     resolve_device,
 )
+from uda_aerial_semantic_segmentation_research_tpu_torch.utils.profiling import annotate
 
 
 def _check_model_device(model, device) -> torch.device:
@@ -177,18 +178,22 @@ def predict_batch(model, images, device=None) -> np.ndarray:
     runs in eval mode (running BatchNorm statistics, left unchanged), as
     the JAX package's ``ModelBundle`` always does.
     """
-    dev = _check_model_device(model, device)
-    model.eval()
-    arr = np.asarray(images)
-    if arr.ndim == 4 and arr.shape[1] == 3 and arr.shape[-1] != 3:
-        arr = np.transpose(arr, (0, 2, 3, 1))
-    with torch.inference_mode():
-        if np.issubdtype(arr.dtype, np.integer):
-            x = normalize_images(torch.tensor(arr, device=dev))
-        else:
-            x = torch.tensor(arr, dtype=torch.float32, device=dev)
-        preds = model(x).argmax(dim=-1)
-    return preds.to(torch.int32).cpu().numpy()
+    with annotate("uda.serve.request"):
+        dev = _check_model_device(model, device)
+        model.eval()
+        arr = np.asarray(images)
+        if arr.ndim == 4 and arr.shape[1] == 3 and arr.shape[-1] != 3:
+            arr = np.transpose(arr, (0, 2, 3, 1))
+        with torch.inference_mode():
+            with annotate("uda.serve.upload"):
+                if np.issubdtype(arr.dtype, np.integer):
+                    x = normalize_images(torch.tensor(arr, device=dev))
+                else:
+                    x = torch.tensor(arr, dtype=torch.float32, device=dev)
+            with annotate("uda.serve.forward"):
+                preds = model(x).argmax(dim=-1)
+        with annotate("uda.serve.download"):
+            return preds.to(torch.int32).cpu().numpy()
 
 
 def predict_raster(model, image, tile: int = 512, overlap: int = 64,

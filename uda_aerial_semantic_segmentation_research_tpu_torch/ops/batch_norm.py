@@ -51,6 +51,7 @@ from uda_aerial_semantic_segmentation_research_tpu_torch.ops.channel_sums import
 )
 from uda_aerial_semantic_segmentation_research_tpu_torch.parallel import distributed as dist
 from uda_aerial_semantic_segmentation_research_tpu_torch.utils.dtypes import to_f32
+from uda_aerial_semantic_segmentation_research_tpu_torch.utils.profiling import annotate
 
 EPS = 1e-5       # flax / torch default, as every BatchNorm of the JAX package
 MOMENTUM = 0.9   # flax convention (torch's 0.1), as every BatchNorm of the JAX package
@@ -120,31 +121,32 @@ class _BNTrain(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar):
-        x, mean, inv, scale = ctx.saved_tensors
-        n = x.numel() // x.shape[1]
-        dy_last = dy.movedim(1, -1)
-        if not dy_last.is_contiguous():
-            dy_last = dy_last.contiguous()
-            dy = dy_last.movedim(-1, 1)
-        sd, sdx = channel_dual_sums(dy_last, x.movedim(1, -1))
-        centred = sdx - mean * sd
-        # this process's share of the parameter gradients: the gradient
-        # average over the processes adds the others' shares
-        dscale = centred * inv         # sum(dy * xhat)
-        dbias = sd
-        if dist.is_initialized():
-            # dx sees the global batch's sums (the statistics were global)
-            sd, sdx = dist.all_reduce_(torch.cat([sd, sdx]), "bn_backward").chunk(2)
+        with annotate("uda.bn.train_backward"):
+            x, mean, inv, scale = ctx.saved_tensors
+            n = x.numel() // x.shape[1]
+            dy_last = dy.movedim(1, -1)
+            if not dy_last.is_contiguous():
+                dy_last = dy_last.contiguous()
+                dy = dy_last.movedim(-1, 1)
+            sd, sdx = channel_dual_sums(dy_last, x.movedim(1, -1))
             centred = sdx - mean * sd
-            n *= dist.process_count()
-        # dx = a*dy + cx*x + d: the BN input gradient with the two sums
-        # substituted analytically
-        a = inv * scale
-        cx = -a * inv * inv * centred / n
-        d = cx * (-mean) - a * sd / n
-        dx = (_per_channel(a, x.dim()) * to_f32(dy) + _per_channel(cx, x.dim()) * to_f32(x)
-              + _per_channel(d, x.dim())).to(x.dtype)
-        return dx, dscale, dbias, None
+            # this process's share of the parameter gradients: the gradient
+            # average over the processes adds the others' shares
+            dscale = centred * inv         # sum(dy * xhat)
+            dbias = sd
+            if dist.is_initialized():
+                # dx sees the global batch's sums (the statistics were global)
+                sd, sdx = dist.all_reduce_(torch.cat([sd, sdx]), "bn_backward").chunk(2)
+                centred = sdx - mean * sd
+                n *= dist.process_count()
+            # dx = a*dy + cx*x + d: the BN input gradient with the two sums
+            # substituted analytically
+            a = inv * scale
+            cx = -a * inv * inv * centred / n
+            d = cx * (-mean) - a * sd / n
+            dx = (_per_channel(a, x.dim()) * to_f32(dy) + _per_channel(cx, x.dim()) * to_f32(x)
+                  + _per_channel(d, x.dim())).to(x.dtype)
+            return dx, dscale, dbias, None
 
 
 def bn_train(x, scale, bias, out_dtype):
@@ -175,14 +177,16 @@ class BatchNorm(nn.Module):
             raise ValueError(f"BatchNorm({self.scale.numel()}) got input "
                              f"{tuple(x.shape)}")
         if self.training:
-            y, mean, var = bn_train(x, self.scale, self.bias, self.dtype)
-            if statistics_frozen():
+            with annotate("uda.bn.train"):
+                y, mean, var = bn_train(x, self.scale, self.bias, self.dtype)
+                if statistics_frozen():
+                    return y
+                with torch.no_grad():
+                    self.mean.copy_(MOMENTUM * self.mean + (1.0 - MOMENTUM) * mean)
+                    self.var.copy_(MOMENTUM * self.var + (1.0 - MOMENTUM) * var)
                 return y
-            with torch.no_grad():
-                self.mean.copy_(MOMENTUM * self.mean + (1.0 - MOMENTUM) * mean)
-                self.var.copy_(MOMENTUM * self.var + (1.0 - MOMENTUM) * var)
-            return y
-        mul, bias = self.folded()
-        y = ((x.float() - _per_channel(self.mean, x.dim())) * _per_channel(mul, x.dim())
-             + _per_channel(bias, x.dim()))
-        return y.to(self.dtype)
+        with annotate("uda.bn.eval"):
+            mul, bias = self.folded()
+            y = ((x.float() - _per_channel(self.mean, x.dim())) * _per_channel(mul, x.dim())
+                 + _per_channel(bias, x.dim()))
+            return y.to(self.dtype)

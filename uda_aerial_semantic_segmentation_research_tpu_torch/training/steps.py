@@ -81,6 +81,7 @@ from uda_aerial_semantic_segmentation_research_tpu_torch.ops.metrics import (
     iou_from_hist,
 )
 from uda_aerial_semantic_segmentation_research_tpu_torch.parallel import distributed as dist
+from uda_aerial_semantic_segmentation_research_tpu_torch.utils.profiling import annotate
 
 
 def model_device(model: torch.nn.Module) -> torch.device:
@@ -160,23 +161,24 @@ def make_supervised_train_step(model: torch.nn.Module, num_classes: int,
             return softmax_cross_entropy(logits, m, class_weights, over_ranks=True)
 
     def step(state, generator, images, masks, abc=None, params=None):
-        if state.model is not model:
-            raise ValueError("the state belongs to another model than the step")
-        device = model_device(model)
-        images = torch.as_tensor(images, device=device)
-        masks = torch.as_tensor(masks, device=device)
-        with torch.no_grad():
-            x, m = _augment(generator, images, masks, aug_cfg, abc, params)
-        model.train()
-        state.optimizer.zero_grad(set_to_none=True)
-        logits = model(x)
-        loss = ce(logits, m)
-        loss.backward()
-        state.apply_gradients()
-        with torch.no_grad():
-            metrics = _seg_metrics(logits.detach(), m, num_classes)
-        metrics["loss"] = loss.detach()
-        return state, dist.reduce_metrics(metrics)
+        with annotate("uda.step.train"):
+            if state.model is not model:
+                raise ValueError("the state belongs to another model than the step")
+            device = model_device(model)
+            images = torch.as_tensor(images, device=device)
+            masks = torch.as_tensor(masks, device=device)
+            with torch.no_grad(), annotate("uda.step.augment"):
+                x, m = _augment(generator, images, masks, aug_cfg, abc, params)
+            model.train()
+            state.optimizer.zero_grad(set_to_none=True)
+            logits = model(x)
+            loss = ce(logits, m)
+            loss.backward()
+            state.apply_gradients()
+            with torch.no_grad():
+                metrics = _seg_metrics(logits.detach(), m, num_classes)
+            metrics["loss"] = loss.detach()
+            return state, dist.reduce_metrics(metrics)
 
     return step
 

@@ -79,6 +79,7 @@ from uda_aerial_semantic_segmentation_research_tpu_torch.utils.device import (
 )
 from uda_aerial_semantic_segmentation_research_tpu_torch.utils.profiling import (
     StepTimer,
+    annotate,
     trace,
 )
 from uda_aerial_semantic_segmentation_research_tpu_torch.visualization import figures
@@ -373,7 +374,7 @@ class SegmentationTrainer:
         for batch_idx, (images, masks) in enumerate(_raw_batches(dataloader, self.device)):
             timer.items_per_step = images.shape[0]
             global_step = (epoch - 1) * (n_total or 1) + batch_idx
-            with timer.step(sync=None):
+            with timer.step(), annotate("uda.trainer.step"):
                 state, metrics = self._train_step(state, generator, images, masks)
                 # read the LAST step's metrics: the host waits for step N-1
                 # while step N is queued on the device
@@ -396,25 +397,27 @@ class SegmentationTrainer:
     def _log_train_batch(self, progress, global_step, batch_idx, metrics,
                          images, masks) -> float:
         """Read back and log one (already queued) step's metrics; returns its loss."""
-        loss, iou, acc = _scalars(metrics["loss"], metrics["iou"], metrics["accuracy"])
-        self.logger.log_scalar("train/loss", loss, global_step)
-        self.logger.log_scalar("train/iou", iou, global_step)
-        self.logger.log_scalar("train/accuracy", acc, global_step)
-        self.logger.log_scalar("train/learning_rate", self._lr, global_step)
+        with annotate("uda.trainer.log"):
+            loss, iou, acc = _scalars(metrics["loss"], metrics["iou"], metrics["accuracy"])
+            self.logger.log_scalar("train/loss", loss, global_step)
+            self.logger.log_scalar("train/iou", iou, global_step)
+            self.logger.log_scalar("train/accuracy", acc, global_step)
+            self.logger.log_scalar("train/learning_rate", self._lr, global_step)
 
-        # the figures draw one process's batch: without a process group only
-        # (the scalars above are the global batch's)
-        if batch_idx % Config.LOG_INTERVAL == 0 and dist.process_count() == 1:
-            self._log_figures(images, masks, metrics["hist"], global_step, "train")
-            per_class = _host(metrics["per_class_iou"])
-            for c in range(self.num_classes):
-                self.logger.log_scalar(f"train/iou_class_{c}", float(per_class[c]),
-                                       global_step)
-        epoch, n_total = progress
-        if batch_idx % Config.LOG_INTERVAL == 0 or batch_idx + 1 == n_total:
-            print(f"Epoch {epoch} [{batch_idx + 1}/{n_total}] loss {loss:.4f} "
-                  f"iou {iou:.4f} acc {acc:.4f}", flush=True)
-        return loss
+            # the figures draw one process's batch: without a process group only
+            # (the scalars above are the global batch's)
+            if batch_idx % Config.LOG_INTERVAL == 0 and dist.process_count() == 1:
+                with annotate("uda.trainer.figures"):
+                    self._log_figures(images, masks, metrics["hist"], global_step, "train")
+                    per_class = _host(metrics["per_class_iou"])
+                    for c in range(self.num_classes):
+                        self.logger.log_scalar(f"train/iou_class_{c}", float(per_class[c]),
+                                               global_step)
+            epoch, n_total = progress
+            if batch_idx % Config.LOG_INTERVAL == 0 or batch_idx + 1 == n_total:
+                print(f"Epoch {epoch} [{batch_idx + 1}/{n_total}] loss {loss:.4f} "
+                      f"iou {iou:.4f} acc {acc:.4f}", flush=True)
+            return loss
 
     def validate(self, dataloader):
         """Full-dataset validation.  'iou' and 'accuracy' are means over the

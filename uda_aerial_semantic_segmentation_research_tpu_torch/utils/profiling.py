@@ -6,9 +6,27 @@ Counterpart of the JAX package's ``utils/profiling.py``:
   (host and, with a GPU, device activity), written to ``logdir`` as a
   Chrome trace that TensorBoard's profile plugin and ``chrome://tracing``
   read;
-- ``annotate(name)``: a named span on the timeline (``record_function``);
+- ``annotate(name)``: a named span on the timeline (``record_function``)
+  while a profiler runs, and a shared null context otherwise;
 - ``StepTimer``: wall-clock step times after warm-up, p50 / p95 and
   items per second.
+
+The program's spans are named ``uda.<layer>.<stage>``, so that a reader of
+a trace tells them from torch's own annotations:
+
+- ``uda.trainer.step`` (one step of ``SegmentationTrainer.train_epoch``, the
+  interval its ``StepTimer`` times), ``uda.trainer.log`` (one step's
+  read-back and logging) and ``uda.trainer.figures`` (a figure step's
+  figures and per-class scalars);
+- ``uda.data.wait`` (``DataLoader``: one batch awaited from the worker
+  threads, or fetched and stacked without them) and ``uda.data.stage``
+  (``prefetch_to_device``: one batch narrowed, pinned and its copy issued);
+- ``uda.step.train`` (the supervised train step) and ``uda.step.augment``
+  (its augmentation);
+- ``uda.bn.train``, ``uda.bn.train_backward`` (on autograd's thread) and
+  ``uda.bn.eval`` (``ops.batch_norm.BatchNorm``);
+- ``uda.serve.request`` (``predict_batch``) and, inside it,
+  ``uda.serve.upload``, ``uda.serve.forward`` and ``uda.serve.download``.
 """
 
 from __future__ import annotations
@@ -36,31 +54,32 @@ def trace(logdir: str = "logs/profile"):
     prof.export_chrome_trace(os.path.join(logdir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
 
 
+_NO_SPAN = contextlib.nullcontext()
+
+
 def annotate(name: str):
-    """Named span on the host and device timelines (``record_function``)."""
+    """Named span on the host timeline of the running profiler, on its
+    clock (``record_function``); with no profiler running, one shared null
+    context, so that a span costs one check of the profiler's state."""
+    if not torch._C._autograd._profiler_enabled():
+        return _NO_SPAN
     return torch.profiler.record_function(name)
 
 
-def _wait_for(t: torch.Tensor) -> None:
-    """Block until the work queued on ``t``'s device stream has finished
-    (a CPU tensor is ready when it exists)."""
-    if t.is_cuda:
-        torch.cuda.current_stream(t.device).synchronize()
-
-
 class StepTimer:
-    """Wall-clock step timing with explicit device synchronization.
+    """Host wall-clock step timing.
 
     Usage::
 
         timer = StepTimer(items_per_step=batch_size)
         for batch in loader:
-            with timer.step(sync=metrics["loss"]):
+            with timer.step():
                 state, metrics = train_step(state, ...)
         print(timer.summary())
 
-    ``sync``: a tensor whose device stream is waited for before the step's
-    time is taken; without it the time is the host's.
+    The time is the host's: a step that only queues device work is timed
+    as long as the host took, so a caller that reads each step's results
+    back (the trainers, one step behind) times the device's pace.
     """
 
     def __init__(self, items_per_step: int = 1, warmup: int = 2):
@@ -70,11 +89,9 @@ class StepTimer:
         self._n_seen = 0
 
     @contextlib.contextmanager
-    def step(self, sync=None):
+    def step(self):
         t0 = time.perf_counter()
         yield
-        if sync is not None:
-            _wait_for(sync)
         self.record(time.perf_counter() - t0)
 
     def record(self, seconds: float):
