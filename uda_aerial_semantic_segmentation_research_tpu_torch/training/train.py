@@ -15,7 +15,12 @@ behaviour: the metrics of step N are read back while step N+1 is queued
 (one step of lag), validation reports per-batch means plus the exact
 ``iou_epoch`` of the summed confusion matrix, early stopping with the JAX
 settings, the best model's checkpoint, and the same TensorBoard tags and
-steps.  Differences, by design:
+steps.  The lag holds on a card because step N's scalars are copied to
+pinned host memory at the end of step N's own dispatch and the read waits
+for that copy alone: it returns with step N+1 still running, and the next
+batch is staged and step N+2 dispatched under it.  The figure steps' reads
+(every ``Config.LOG_INTERVAL`` batches) still wait for the queued step.
+Differences, by design:
 
 - the model is the ``nn.Module`` that ``create_model`` returns, trained in
   place; checkpoints hold its ``model_state_dict`` in the JAX layout
@@ -249,6 +254,40 @@ def _scalars(*tensors) -> List[float]:
     return torch.stack([t.detach().float().reshape(()) for t in tensors]).tolist()
 
 
+class _QueuedScalars:
+    """A step's logged scalars, queued for the host at the end of that step.
+
+    On a card the scalars are stacked into one float32 tensor, copied without
+    blocking into pinned host memory, and an event is recorded on the compute
+    stream behind the copy; ``read`` waits for that event alone, so a read
+    made after the next step was dispatched leaves that step queued.  Off the
+    card they are read synchronously.  Either way the floats are
+    ``_scalars``'s, in the same order."""
+
+    def __init__(self, *tensors):
+        values = torch.stack([t.detach().float().reshape(()) for t in tensors])
+        self.done = None
+        if values.is_cuda:
+            # a fresh pinned block a step: the caching host allocator hands it
+            # out again only after the copy recorded on it has finished
+            self.values = torch.empty(values.shape, dtype=values.dtype, pin_memory=True)
+            self.values.copy_(values, non_blocking=True)
+            self.done = torch.cuda.Event()
+            self.done.record(torch.cuda.current_stream(values.device))
+        else:
+            self.values = values
+
+    def running(self) -> Optional[bool]:
+        """Whether the card has not yet reached the end of this step (None
+        off the card)."""
+        return None if self.done is None else not self.done.query()
+
+    def read(self) -> List[float]:
+        if self.done is not None:
+            self.done.synchronize()
+        return self.values.tolist()
+
+
 class SegmentationTrainer:
     """Phase-1 supervised trainer, one device per process."""
 
@@ -369,22 +408,27 @@ class SegmentationTrainer:
         n_total = len(dataloader) if hasattr(dataloader, "__len__") else None
         generator = self._epoch_generator(epoch)
         self.timer = timer = StepTimer(warmup=1)
-        pending = None  # (global_step, batch_idx, metrics, images, masks)
+        pending = None  # (global_step, batch_idx, metrics, scalars, images, masks)
+        held = []       # on a card, per lagged read: was the next step still running
         progress = (epoch, n_total)
         for batch_idx, (images, masks) in enumerate(_raw_batches(dataloader, self.device)):
             timer.items_per_step = images.shape[0]
             global_step = (epoch - 1) * (n_total or 1) + batch_idx
             with timer.step(), annotate("uda.trainer.step"):
                 state, metrics = self._train_step(state, generator, images, masks)
-                # read the LAST step's metrics: the host waits for step N-1
-                # while step N is queued on the device
+                scalars = _QueuedScalars(metrics["loss"], metrics["iou"], metrics["accuracy"])
+                # read the LAST step's metrics: the host waits for step N-1's
+                # copy alone, and returns with step N still queued on the card
                 if pending is not None:
-                    total_loss += self._log_train_batch(progress, *pending)
+                    loss, running = self._log_train_batch(progress, *pending, after=scalars)
+                    total_loss += loss
                     n_batches += 1
-            pending = (global_step, batch_idx, metrics, images, masks)
+                    if running is not None:
+                        held.append(running)
+            pending = (global_step, batch_idx, metrics, scalars, images, masks)
 
         if pending is not None:
-            total_loss += self._log_train_batch(progress, *pending)
+            total_loss += self._log_train_batch(progress, *pending)[0]
             n_batches += 1
 
         perf = timer.summary()
@@ -392,13 +436,18 @@ class SegmentationTrainer:
             self.logger.log_scalar("perf/steps_per_sec", perf["steps_per_sec"], epoch)
             self.logger.log_scalar("perf/tiles_per_sec", perf["items_per_sec"], epoch)
             self.logger.log_scalar("perf/step_ms_p50", perf["step_ms_p50"], epoch)
+        if held:
+            self.logger.log_scalar("perf/lag_held_share", sum(held) / len(held), epoch)
         return state, total_loss / max(n_batches, 1)
 
-    def _log_train_batch(self, progress, global_step, batch_idx, metrics,
-                         images, masks) -> float:
-        """Read back and log one (already queued) step's metrics; returns its loss."""
+    def _log_train_batch(self, progress, global_step, batch_idx, metrics, scalars,
+                         images, masks, after: Optional[_QueuedScalars] = None):
+        """Read back and log one (already queued) step's metrics.  Returns its
+        loss, and whether the step ``after`` it was still running when the
+        read returned (None without ``after`` or off the card)."""
         with annotate("uda.trainer.log"):
-            loss, iou, acc = _scalars(metrics["loss"], metrics["iou"], metrics["accuracy"])
+            loss, iou, acc = scalars.read()
+            running = None if after is None else after.running()
             self.logger.log_scalar("train/loss", loss, global_step)
             self.logger.log_scalar("train/iou", iou, global_step)
             self.logger.log_scalar("train/accuracy", acc, global_step)
@@ -417,7 +466,7 @@ class SegmentationTrainer:
             if batch_idx % Config.LOG_INTERVAL == 0 or batch_idx + 1 == n_total:
                 print(f"Epoch {epoch} [{batch_idx + 1}/{n_total}] loss {loss:.4f} "
                       f"iou {iou:.4f} acc {acc:.4f}", flush=True)
-            return loss
+            return loss, running
 
     def validate(self, dataloader):
         """Full-dataset validation.  'iou' and 'accuracy' are means over the

@@ -78,8 +78,12 @@ class StepTimer:
         print(timer.summary())
 
     The time is the host's: a step that only queues device work is timed
-    as long as the host took, so a caller that reads each step's results
-    back (the trainers, one step behind) times the device's pace.
+    as long as the host took.  ``SegmentationTrainer.train_epoch`` times the
+    dispatch of step N plus the read of step N-1, which waits for step N-1's
+    end alone; staging the next batch falls outside the block.  So with a
+    step queued on the card its times are the device's step less the host
+    work outside the block, not the loop's period: its ``items_per_sec`` is
+    no rate of the loop.
     """
 
     def __init__(self, items_per_step: int = 1, warmup: int = 2):
