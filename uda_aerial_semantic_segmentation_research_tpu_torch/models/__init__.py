@@ -157,7 +157,9 @@ def create_model(model_name: Optional[str] = None, encoder_name: Optional[str] =
     sample input).  ``arch_kwargs`` go to the architecture's constructor:
     ``remat``, ``logits_dtype``, ``fused_eval``, ``fused_decoder`` to the ``Unet`` (through
     ``create_unet``), ``bins``, ``atrous_rates``, ``pyramid_channels``, ... to
-    the others."""
+    the others; ``layout="smp"`` to ``DeepLabV3Plus`` builds smp's own
+    DeepLabV3+ (output stride 16, separable ASPP, dropout), whose dropout
+    masks ``seed`` also seeds (``DeepLabV3Plus.seed_dropout``)."""
     model_name = model_name or Config.MODEL_NAME
     encoder_name = encoder_name or Config.ENCODER_NAME
     if model_name == "Unet":
@@ -173,6 +175,8 @@ def create_model(model_name: Optional[str] = None, encoder_name: Optional[str] =
                                       in_channels=in_channels or Config.IN_CHANNELS,
                                       dtype=dtype or Config.compute_dtype(), **arch_kwargs)
     init_weights_(model, torch.Generator().manual_seed(seed))
+    if hasattr(model, "seed_dropout"):
+        model.seed_dropout(seed)
     model = model.to(dev, memory_format=torch.channels_last).eval()
     if encoder_weights == "imagenet":
         load_imagenet_encoder(model, encoder_name)

@@ -27,6 +27,11 @@ resize rounds its weights and each of its two contractions.
 Every BatchNorm input stays channels_last: concatenations go along the
 NHWC view's last axis (``_cat``), which is what ``jnp.concatenate`` does.
 
+``DeepLabV3Plus(layout="smp")`` is segmentation_models.pytorch's own
+DeepLabV3+ with its defaults, not an analogue: the class docstring says how
+it differs from the default ``layout="jax"``.  It is the one family with a
+dropout (``Dropout``, whose masks are a function of a seed and a count).
+
 Under a height-sharded forward (``parallel.spatial``) the families resize
 to a level's global size through ``_resize`` (this rank's rows of it), take
 their means over H and W through ``spatial.pooled`` and run what reads the
@@ -39,8 +44,9 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -52,6 +58,9 @@ from uda_aerial_semantic_segmentation_research_tpu_torch.models.resnet import (
 )
 from uda_aerial_semantic_segmentation_research_tpu_torch.ops.batch_norm import BatchNorm
 from uda_aerial_semantic_segmentation_research_tpu_torch.parallel import spatial
+from uda_aerial_semantic_segmentation_research_tpu_torch.utils.profiling import annotate
+
+_MASK63 = (1 << 63) - 1
 
 
 def _upsample_to(x, h: int, w: int, method: str = "nearest"):
@@ -115,6 +124,22 @@ def _conv_bn_relu(parent: nn.Module, name: str, x):
     return torch.relu(getattr(parent, f"{name}_norm")(getattr(parent, f"{name}_conv")(x)))
 
 
+def _add_separable_bn_relu(parent: nn.Module, name: str, cin: int, cout: int,
+                           dtype: torch.dtype, dilation: int = 1) -> None:
+    """smp's ``SeparableConv2d`` (no bias) and a BatchNorm on ``parent``:
+    ``{name}_depthwise`` (3x3, ``groups=cin``, SAME padding at ``dilation``),
+    ``{name}_pointwise`` (1x1 to ``cout``), ``{name}_norm``."""
+    parent.add_module(f"{name}_depthwise", Conv2d(cin, cin, 3, padding=dilation,
+                                                  dilation=dilation, groups=cin, bias=False))
+    parent.add_module(f"{name}_pointwise", Conv2d(cin, cout, 1, bias=False))
+    parent.add_module(f"{name}_norm", BatchNorm(cout, dtype=dtype))
+
+
+def _separable_bn_relu(parent: nn.Module, name: str, x):
+    y = getattr(parent, f"{name}_pointwise")(getattr(parent, f"{name}_depthwise")(x))
+    return torch.relu(getattr(parent, f"{name}_norm")(y))
+
+
 def _head(cin: int, classes: int, k: int = 1) -> Conv2d:
     return Conv2d(cin, classes, k, padding=k // 2, bias=True)
 
@@ -132,15 +157,54 @@ class Linear(nn.Linear):
         return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
 
 
+def dropout_draw_seed(seed: int, k: int) -> int:
+    """The seed of ``Dropout``'s ``k``-th mask under ``seed``: the first
+    word of ``numpy.random.SeedSequence([seed mod 2**63, k])``, mod 2**63."""
+    mixed = np.random.SeedSequence([int(seed) & _MASK63, int(k)]).generate_state(1, np.uint64)
+    return int(mixed[0]) & _MASK63
+
+
+class Dropout(nn.Module):
+    """Dropout whose masks are a function of a seed and a count.
+
+    The ``k``-th train-mode forward since ``seed`` was set (``k`` = 0, 1,
+    ...) draws ``u = torch.rand(x.shape, dtype=torch.float32, generator=g)``
+    over ``x``'s NCHW shape from ``g``, a ``torch.Generator`` on ``x``'s
+    device seeded with ``dropout_draw_seed(seed, k)``, and returns ``x``
+    where ``u >= p``, times ``1 / (1 - p)`` (exactly 2 at ``p = 0.5``), and
+    0 elsewhere.  Eval mode returns ``x`` and draws nothing.  So a
+    reference that knows ``seed`` and counts the forwards draws the same
+    masks, and under data parallelism every rank, with the same seed and
+    count, draws the same masks over its own rows.  The generator lives for
+    one forward: the module holds two ints, which ``copy.deepcopy`` copies
+    and ``state_dict`` leaves out.
+    """
+
+    def __init__(self, p: float, seed: int = 0):
+        super().__init__()
+        self.p, self.seed, self.draws = float(p), int(seed), 0
+
+    def forward(self, x):
+        if not self.training:
+            return x
+        g = torch.Generator(device=x.device)
+        g.manual_seed(dropout_draw_seed(self.seed, self.draws))
+        self.draws += 1
+        u = torch.rand(x.shape, dtype=torch.float32, generator=g, device=x.device)
+        return x * (u >= self.p).to(x.dtype).mul_(1.0 / (1.0 - self.p))
+
+
 class _SegBase(nn.Module):
     """Encoder + the float32 NHWC logits contract."""
 
     def __init__(self, encoder_name: str = "resnet34", classes: int = 23,
-                 in_channels: int = 3, dtype: torch.dtype = torch.bfloat16):
+                 in_channels: int = 3, dtype: torch.dtype = torch.bfloat16,
+                 output_stride: int = 32):
         super().__init__()
         self.classes = classes
         self.dtype = dtype
-        self.encoder = build_encoder(encoder_name, in_channels, dtype)
+        self.encoder = build_encoder(encoder_name, in_channels, dtype,
+                                     output_stride=output_stride)
         self.channels = encoder_out_channels(encoder_name)
 
     def encode(self, x):
@@ -293,27 +357,74 @@ class UnetPlusPlus(_SegBase):
 
 
 class DeepLabV3Plus(_SegBase):
-    """DeepLabV3+ (smp.DeepLabV3Plus analogue): ASPP over the /32 bottleneck
-    (1x1, dilated 3x3 at ``atrous_rates``, image pooling) -> 1x1 project ->
-    upsample to /4 -> concat the 48-channel low level -> two 3x3 -> head."""
+    """DeepLabV3+ in one of two layouts.
+
+    ``layout="jax"`` (the default) is the JAX package's smp.DeepLabV3Plus
+    analogue: ASPP over the /32 bottleneck (1x1, dilated 3x3 at
+    ``atrous_rates``, default (2, 4, 6), image pooling) -> 1x1 project ->
+    upsample to /4 -> concat the 48-channel low level -> two 3x3 -> head,
+    half-pixel resizes.
+
+    ``layout="smp"`` is segmentation_models.pytorch's ``DeepLabV3Plus``
+    with its defaults (``decoders/deeplabv3/model.py`` and ``decoder.py``,
+    ``base/heads.py::SegmentationHead``; Chen et al. 2018): the encoder at
+    output stride 16 (``models.resnet``); an ASPP on the last level of a
+    1x1 conv, three separable 3x3 convs (depthwise at dilation ``r``, then
+    pointwise) at ``atrous_rates``, default (12, 24, 36), and image pooling
+    (the mean over H and W, a 1x1 conv, broadcast back), each to
+    ``aspp_channels`` with BatchNorm and ReLU, concatenated, projected by a
+    1x1 conv block and dropped out at 0.5 (``Dropout``); a separable 3x3
+    block; x4 bilinear upsampling with ``align_corners=True``; the /4 level
+    through a 1x1 block to 48 channels, concatenated after it; a separable
+    3x3 block; a 1x1 head with bias and x4 bilinear with
+    ``align_corners=True`` to the logits.  No other conv has a bias.  Its
+    ASPP (through the separable 3x3 block) runs under the span
+    ``uda.deeplab.aspp`` and the rest under ``uda.deeplab.decoder``.  It
+    has no height-sharded forward.  ``seed_dropout`` restarts its masks.
+    """
 
     def __init__(self, encoder_name: str = "resnet34", classes: int = 23,
                  in_channels: int = 3, dtype: torch.dtype = torch.bfloat16,
-                 aspp_channels: int = 256, atrous_rates: Sequence[int] = (2, 4, 6)):
-        super().__init__(encoder_name, classes, in_channels, dtype)
+                 aspp_channels: int = 256, atrous_rates: Optional[Sequence[int]] = None,
+                 layout: str = "jax"):
+        if layout not in ("jax", "smp"):
+            raise ValueError(f"layout is 'jax' or 'smp', not {layout!r}")
+        super().__init__(encoder_name, classes, in_channels, dtype,
+                         output_stride=16 if layout == "smp" else 32)
+        self.layout = layout
+        if atrous_rates is None:
+            atrous_rates = (12, 24, 36) if layout == "smp" else (2, 4, 6)
         self.atrous_rates = tuple(atrous_rates)
         c5, a = self.channels[5], aspp_channels
         _add_conv_bn_relu(self, "aspp_1x1", c5, a, 1, dtype)
         for r in self.atrous_rates:
-            _add_conv_bn_relu(self, f"aspp_r{r}", c5, a, 3, dtype, dilation=r)
+            if layout == "smp":
+                _add_separable_bn_relu(self, f"aspp_r{r}", c5, a, dtype, dilation=r)
+            else:
+                _add_conv_bn_relu(self, f"aspp_r{r}", c5, a, 3, dtype, dilation=r)
         _add_conv_bn_relu(self, "aspp_pool", c5, a, 1, dtype)
         _add_conv_bn_relu(self, "aspp_project", a * (len(self.atrous_rates) + 2), a, 1, dtype)
-        _add_conv_bn_relu(self, "low_project", self.channels[2], 48, 1, dtype)
-        _add_conv_bn_relu(self, "refine1", a + 48, a, 3, dtype)
-        _add_conv_bn_relu(self, "refine2", a, a, 3, dtype)
+        if layout == "smp":
+            self.aspp_dropout = Dropout(0.5)
+            _add_separable_bn_relu(self, "aspp_sep", a, a, dtype)
+            _add_conv_bn_relu(self, "highres", self.channels[2], 48, 1, dtype)
+            _add_separable_bn_relu(self, "fuse", a + 48, a, dtype)
+        else:
+            _add_conv_bn_relu(self, "low_project", self.channels[2], 48, 1, dtype)
+            _add_conv_bn_relu(self, "refine1", a + 48, a, 3, dtype)
+            _add_conv_bn_relu(self, "refine2", a, a, 3, dtype)
         self.head = _head(a, classes)
 
+    def seed_dropout(self, seed: int) -> None:
+        """Restart the dropout's masks at the first of ``seed``'s
+        (``Dropout``); the JAX layout has no dropout."""
+        for m in self.modules():
+            if isinstance(m, Dropout):
+                m.seed, m.draws = int(seed), 0
+
     def forward(self, x):
+        if self.layout == "smp":
+            return self._forward_smp(x)
         feats = self.encode(x)
         low, c5 = feats[2], feats[5]
         branches = [_conv_bn_relu(self, "aspp_1x1", c5)]
@@ -328,6 +439,25 @@ class DeepLabV3Plus(_SegBase):
         y = _cat([y, _conv_bn_relu(self, "low_project", low)])
         y = _conv_bn_relu(self, "refine2", _conv_bn_relu(self, "refine1", y))
         return self._logits(self.head(y), feats[0])
+
+    def _forward_smp(self, x):
+        if spatial.current_shard() is not None:
+            raise ValueError("DeepLabV3Plus(layout='smp') has no height-sharded forward")
+        feats = self.encode(x)
+        high, c5 = feats[2], feats[5]
+        with annotate("uda.deeplab.aspp"):
+            branches = [_conv_bn_relu(self, "aspp_1x1", c5)]
+            branches += [_separable_bn_relu(self, f"aspp_r{r}", c5) for r in self.atrous_rates]
+            pooled = _conv_bn_relu(self, "aspp_pool", c5.mean((2, 3), keepdim=True))
+            branches.append(pooled.expand(-1, -1, c5.shape[2], c5.shape[3]))
+            y = self.aspp_dropout(_conv_bn_relu(self, "aspp_project", _cat(branches)))
+            y = _separable_bn_relu(self, "aspp_sep", y)
+        with annotate("uda.deeplab.decoder"):
+            y = F.interpolate(y, size=high.shape[2:], mode="bilinear", align_corners=True)
+            y = _separable_bn_relu(self, "fuse", _cat([y, _conv_bn_relu(self, "highres", high)]))
+            y = F.interpolate(self.head(y), size=x.shape[1:3], mode="bilinear",
+                              align_corners=True)
+            return y.float().permute(0, 2, 3, 1).contiguous()
 
 
 class PAN(_SegBase):

@@ -13,6 +13,14 @@ Parameters are float32; activations run in ``dtype``.  Under a
 height-sharded forward (``parallel.spatial``) the convs and the max-pool
 compute this rank's rows.
 
+``output_stride`` 16 (smp's ``encoder_output_stride=16``, which
+DeepLabV3+ uses) runs the ResNet's stage 4 as smp's
+``replace_strides_with_dilation(layer4, 2)`` makes it: no conv of the stage
+strides, every 3x3 conv has dilation 2 and padding 2, so the pyramid's last
+two levels are both /16.  smp also sets dilation 2 on the stage's 1x1
+convs, where it changes nothing; here they keep dilation 1.  The default,
+32, is the plain ResNet.
+
 ``remat`` (the JAX encoder's option, numerically the same network and the
 same parameters in every mode) recomputes activations in the backward
 instead of saving them: ``True`` checkpoints each residual block (the stem
@@ -78,20 +86,22 @@ class Conv2d(nn.Conv2d):
 
 
 def conv(cin: int, cout: int, k: int, stride: int = 1, bias: bool = False,
-         groups: int = 1) -> Conv2d:
-    return Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=bias, groups=groups)
+         groups: int = 1, dilation: int = 1) -> Conv2d:
+    return Conv2d(cin, cout, k, stride=stride, padding=dilation * (k // 2), dilation=dilation,
+                  bias=bias, groups=groups)
 
 
 class BasicBlock(nn.Module):
-    """3x3 + 3x3 residual block (resnet18/34)."""
+    """3x3 + 3x3 residual block (resnet18/34); ``dilation`` on both 3x3s."""
 
     expansion = 1
 
-    def __init__(self, cin: int, filters: int, stride: int, dtype: torch.dtype):
+    def __init__(self, cin: int, filters: int, stride: int, dtype: torch.dtype,
+                 dilation: int = 1):
         super().__init__()
-        self.conv1 = conv(cin, filters, 3, stride)
+        self.conv1 = conv(cin, filters, 3, stride, dilation=dilation)
         self.bn1 = BatchNorm(filters, dtype=dtype)
-        self.conv2 = conv(filters, filters, 3)
+        self.conv2 = conv(filters, filters, 3, dilation=dilation)
         self.bn2 = BatchNorm(filters, zero_scale=True, dtype=dtype)
         self.downsample_conv = self.downsample_norm = None
         if stride != 1 or cin != filters:
@@ -109,16 +119,17 @@ class BasicBlock(nn.Module):
 
 
 class Bottleneck(nn.Module):
-    """1x1 -> 3x3 -> 1x1 residual block (resnet50+)."""
+    """1x1 -> 3x3 -> 1x1 residual block (resnet50+); ``dilation`` on the 3x3."""
 
     expansion = 4
 
-    def __init__(self, cin: int, filters: int, stride: int, dtype: torch.dtype):
+    def __init__(self, cin: int, filters: int, stride: int, dtype: torch.dtype,
+                 dilation: int = 1):
         super().__init__()
         out = filters * self.expansion
         self.conv1 = conv(cin, filters, 1)
         self.bn1 = BatchNorm(filters, dtype=dtype)
-        self.conv2 = conv(filters, filters, 3, stride)
+        self.conv2 = conv(filters, filters, 3, stride, dilation=dilation)
         self.bn2 = BatchNorm(filters, dtype=dtype)
         self.conv3 = conv(filters, out, 1)
         self.bn3 = BatchNorm(out, zero_scale=True, dtype=dtype)
@@ -143,14 +154,17 @@ class ResNetEncoder(nn.Module):
 
     Blocks are registered as ``stage{s}_block{b}`` (1-based stages), the
     JAX package's module names.  ``remat``: ``False``, ``True``, ``"convs"``
-    or ``"stageN..."`` (module docstring).
+    or ``"stageN..."``; ``output_stride``: 32, or 16 for a dilated stage 4
+    (module docstring).
     """
 
     def __init__(self, stage_sizes, block_cls, in_channels: int = 3,
                  num_filters: int = 64, dtype: torch.dtype = torch.bfloat16,
-                 remat=False):
+                 remat=False, output_stride: int = 32):
         super().__init__()
         _remat_stage_set(remat)                      # a bad stage spec raises here
+        if output_stride not in (16, 32):
+            raise ValueError(f"output_stride is 16 or 32, not {output_stride!r}")
         self.dtype = dtype
         self.remat = remat
         self.stem_conv = conv(in_channels, num_filters, 7, 2)
@@ -160,10 +174,12 @@ class ResNetEncoder(nn.Module):
         for stage, n_blocks in enumerate(stage_sizes):
             names = []
             filters = num_filters * 2 ** stage
+            dilated = output_stride == 16 and stage == 3
             for blk in range(n_blocks):
-                stride = 2 if stage > 0 and blk == 0 else 1
+                stride = 2 if stage > 0 and blk == 0 and not dilated else 1
                 name = f"stage{stage + 1}_block{blk}"
-                self.add_module(name, block_cls(cin, filters, stride, dtype))
+                self.add_module(name, block_cls(cin, filters, stride, dtype,
+                                                dilation=2 if dilated else 1))
                 cin = filters * block_cls.expansion
                 names.append(name)
             self.stages.append(names)
@@ -183,7 +199,7 @@ class ResNetEncoder(nn.Module):
             for name in names:
                 block = getattr(self, name)
                 y = checkpoint(block, y) if whole else block(y, self.remat == "convs")
-            feats.append(y)                                      # /4 /8 /16 /32
+            feats.append(y)                                      # /4 /8 /16 /32 (or /16)
         return feats
 
     def forward(self, x) -> List[torch.Tensor]:
@@ -306,12 +322,19 @@ def encoder_out_channels(encoder_name: str):
 
 
 def build_encoder(encoder_name: str, in_channels: int = 3,
-                  dtype: torch.dtype = torch.bfloat16, remat=False) -> nn.Module:
+                  dtype: torch.dtype = torch.bfloat16, remat=False,
+                  output_stride: int = 32) -> nn.Module:
+    """The encoder ``encoder_name`` of ``ENCODERS``; ``output_stride`` 16
+    dilates a ResNet's stage 4 (module docstring)."""
     if encoder_name not in ENCODERS:
         raise ValueError(
             f"Unknown encoder '{encoder_name}'; available: {sorted(ENCODERS)}")
     if encoder_name == "mobilenet_v2":
+        if output_stride != 32:
+            raise ValueError(f"mobilenet_v2 runs at output_stride 32 only, not "
+                             f"{output_stride!r}")
         return MobileNetV2Encoder(in_channels=in_channels, dtype=dtype, remat=remat)
     spec = ENCODERS[encoder_name]
     return ResNetEncoder(spec["stage_sizes"], spec["block_cls"],
-                         in_channels=in_channels, dtype=dtype, remat=remat)
+                         in_channels=in_channels, dtype=dtype, remat=remat,
+                         output_stride=output_stride)
